@@ -1,0 +1,130 @@
+"""Segmentation service: watch a directory, segment arrivals
+(``pointunet_tpu/cli/serve.py``).
+
+The process builds the models once, then polls an inbox for new
+BraTS-layout case folders (``<case>/<case>_{t1ce,t1,flair,t2}.nii.gz``, as
+``data.loader.find_brats_cases`` reads them) and writes ``<case>.nii.gz``
+labels plus a ``<case>.json`` latency record to the outbox. Cases already
+in the outbox are skipped, so the service is restart-safe. (The
+reference's Pancreas inbox is not ported yet.)
+
+Usage:
+    python -m pointunet_tpu_torch.cli.serve --inbox in/ --outbox out/ \
+        [--once] [--device cuda] [--roi X Y Z] [--n_point N]
+
+``--once`` drains the current inbox and exits; without it the service
+polls every ``--poll_s`` seconds. Weights are randomly initialised (seed
+0) until the port can load checkpoints.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+import traceback
+
+import numpy as np
+import torch
+
+from ..data import nifti
+from ..data.loader import find_brats_cases, load_brats_volume
+from ..pipeline.fused import FusedPointUnet
+from .segment import build_pipeline
+
+
+def _serve_case(fast_pipe, case, mods, outbox):
+    out_nii = os.path.join(outbox, case + ".nii.gz")
+    out_rec = os.path.join(outbox, case + ".json")
+    t0 = time.time()
+    labels = fast_pipe.segment_volume(mods)
+    latency = time.time() - t0
+    nifti.save(labels.astype(np.uint8), out_nii)
+    with open(out_rec, "w") as f:
+        json.dump(
+            {"case": case, "latency_s": round(latency, 3),
+             "labels": out_nii, "voxels": int((labels > 0).sum())},
+            f,
+        )
+    return latency
+
+
+class Server:
+    """The models, one ``FusedPointUnet`` per volume shape (the ROI and
+    padding are fixed at construction; the models are shared), the count
+    of served cases and the per-case failure counts."""
+
+    def __init__(self, args: argparse.Namespace):
+        self.args = args
+        self.pipeline = build_pipeline(args.n_point)
+        self.pipes: dict = {}
+        self.failures: dict = {}
+        self.served = 0
+        os.makedirs(args.outbox, exist_ok=True)
+
+    def pipe(self, shape) -> FusedPointUnet:
+        if shape not in self.pipes:
+            p = self.pipeline
+            self.pipes[shape] = FusedPointUnet(
+                p.saliency_model, p.pointseg_model, p.scfg, p.pcfg,
+                threshold=self.args.threshold,
+                volume_shape=shape,
+                roi_shape=self.args.roi,
+                device=self.args.device,
+            )
+        return self.pipes[shape]
+
+    def drain(self) -> None:
+        """Serve every inbox case that has no record in the outbox yet."""
+        outbox = self.args.outbox
+        for case_dir in find_brats_cases(self.args.inbox):
+            case = os.path.basename(case_dir.rstrip("/"))
+            if (os.path.exists(os.path.join(outbox, case + ".json"))
+                    or self.failures.get(case, 0) >= 3):
+                continue
+            try:
+                mods = load_brats_volume(case_dir)
+                pipe = self.pipe(tuple(mods.shape[1:]))
+                latency = _serve_case(pipe, case, mods, outbox)
+            except Exception as e:       # contain per-case failures:
+                # a malformed or half-copied case is retried on later polls
+                # and skipped after 3 strikes, so it cannot crash-loop or
+                # starve the rest of the inbox
+                self.failures[case] = self.failures.get(case, 0) + 1
+                print(f"ERROR {case} (attempt {self.failures[case]}/3): {e}",
+                      flush=True)
+                traceback.print_exc()
+                continue
+            self.served += 1
+            print(f"served {case}: {latency:.2f} s (total {self.served})",
+                  flush=True)
+
+
+def main(argv=None) -> Server:
+    """Run the service; returns the ``Server`` (its ``served`` count and
+    per-shape ``pipes``) once ``--once`` has drained the inbox."""
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--inbox", type=str, required=True,
+                        help="directory of incoming case folders")
+    parser.add_argument("--outbox", type=str, required=True)
+    parser.add_argument("--threshold", type=float, default=0.9)
+    parser.add_argument("--roi", type=int, nargs=3, default=None,
+                        metavar=("X", "Y", "Z"))
+    parser.add_argument("--poll_s", type=float, default=2.0)
+    parser.add_argument("--once", action="store_true",
+                        help="drain the inbox once and exit")
+    parser.add_argument("--n_point", type=int, default=365000)
+    parser.add_argument("--device", type=str,
+                        default="cuda" if torch.cuda.is_available() else "cpu")
+    args = parser.parse_args(argv)
+
+    server = Server(args)
+    while True:
+        server.drain()
+        if args.once:
+            return server
+        time.sleep(args.poll_s)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,17 @@
+from .config import (
+    PointSegConfig,
+    SaliencyConfig,
+    brats_pointseg_config,
+    brats_saliency_config,
+    pancreas_pointseg_config,
+    pancreas_saliency_config,
+)
+
+__all__ = [
+    "PointSegConfig",
+    "SaliencyConfig",
+    "brats_pointseg_config",
+    "brats_saliency_config",
+    "pancreas_pointseg_config",
+    "pancreas_saliency_config",
+]

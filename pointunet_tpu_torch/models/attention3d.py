@@ -1,0 +1,72 @@
+"""Spatial and channel-wise 3-D attention gates (``pointunet_tpu/models/attention3d.py``).
+
+Channels-first (B, C, D, H, W).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .fastconv import Conv
+from .naming import FlaxNamed
+from .norms import NormRelu
+
+
+class SpatialAttention3D(FlaxNamed):
+    """Three separable k=9 conv pairs summed -> sigmoid -> broadcast over C.
+
+    broadcast=False returns the raw (B, 1, D, H, W) gate, which the strided
+    gate mode resizes before the multiply."""
+
+    def __init__(
+        self,
+        channels: int,
+        instance_norm: bool = True,
+        kernel: int = 9,
+        dtype: Optional[torch.dtype] = None,
+        broadcast: bool = True,
+    ):
+        super().__init__()
+        k, c = kernel, channels
+        self.channels = c
+        self.broadcast = broadcast
+        self.branches = []
+        for pair_a, pair_b in (
+            ((1, k, k), (k, 1, 1)),
+            ((k, 1, k), (1, k, 1)),
+            ((k, k, 1), (1, 1, k)),
+        ):
+            self.branches.append((
+                self.child("Conv", Conv(c, c // 2, pair_a, dtype=dtype)),
+                self.child("NormRelu", NormRelu(c // 2, instance_norm)),
+                self.child("Conv", Conv(c // 2, 1, pair_b, dtype=dtype)),
+                self.child("NormRelu", NormRelu(1, instance_norm)),
+            ))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gate = None
+        for conv_a, norm_a, conv_b, norm_b in self.branches:
+            h = norm_b(conv_b(norm_a(conv_a(x))))
+            gate = h if gate is None else gate + h
+        gate = torch.sigmoid(gate)                       # (B, 1, D, H, W)
+        if not self.broadcast:
+            return gate
+        return gate.expand(-1, self.channels, -1, -1, -1)
+
+
+class ChannelWiseAttention3D(FlaxNamed):
+    """GAP -> dense(C/4, relu) -> dense(C, sigmoid) -> multiply. The dense
+    layers run in f32, as in the reference."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.child("Dense", nn.Linear(channels, channels // 4), "fc1")
+        self.child("Dense", nn.Linear(channels // 4, channels), "fc2")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        att = x.mean(dim=(2, 3, 4), dtype=torch.float32)       # (B, C)
+        att = torch.sigmoid(self.fc2(F.relu(self.fc1(att))))
+        return x * att.to(x.dtype)[:, :, None, None, None]

@@ -1,0 +1,230 @@
+"""RandLA-Net point segmentation network (``pointunet_tpu/models/randlanet.py``).
+
+Inference only. Features (B, N, C_in) and a batched ``Pyramid`` of
+per-level xyz / neighbour / pool / up-sample indices in, logits
+(B, N, num_classes) f32 out. Every "1x1 conv" over points is a Linear;
+batch norm uses eps 1e-6 and its running statistics; activations are
+leaky_relu(0.2); the attentive pooling's softmax runs over the K axis.
+
+dtype policy: ``use_bfloat16`` None means auto: bf16 when the features are
+on CUDA, f32 on the CPU. In bf16 the layers compute in bf16 while xyz,
+the relative-position encoding and the head's last Linear stay f32. The
+reference's double-bf16 xyz gather table is a TPU gather workaround and is
+not ported: the f32 xyz rows are gathered directly.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..core.config import PointSegConfig
+from ..ops.gather import encode_neighbor_xyz, gather_neighbour
+from ..ops.pyramid import Pyramid
+from .naming import FlaxNamed
+from .norms import BatchNorm
+
+
+def _gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(B, N, C), (B, M, K) -> (B, M, K, C)."""
+    return torch.stack([gather_neighbour(t, i) for t, i in zip(table, idx)])
+
+
+def _linear(layer: nn.Linear, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    b = None if layer.bias is None else layer.bias.to(dt)
+    return F.linear(x.to(dt), layer.weight.to(dt), b)
+
+
+class SharedMLP(FlaxNamed):
+    """Linear + optional BatchNorm + leaky_relu(0.2)."""
+
+    def __init__(self, in_features: int, features: int, bn: bool = True,
+                 activation: bool = True):
+        super().__init__()
+        self.activation = activation
+        self.child("Dense", nn.Linear(in_features, features), "dense")
+        self.bn = None
+        if bn:
+            self.child("BatchNorm", BatchNorm(features, 1e-6), "bn")
+
+    def forward(self, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+        x = _linear(self.dense, x, dt)
+        if self.bn is not None:
+            x = self.bn(x)
+        if self.activation:
+            x = F.leaky_relu(x, 0.2)
+        return x
+
+
+class AttPooling(FlaxNamed):
+    """Attentive pooling over K: softmax(W f) over K, weighted sum, MLP."""
+
+    def __init__(self, d: int, d_out: int):
+        super().__init__()
+        self.child("Dense", nn.Linear(d, d, bias=False), "score")
+        self.child("SharedMLP", SharedMLP(d, d_out), "mlp")
+
+    def forward(self, feature_set: torch.Tensor, dt) -> torch.Tensor:
+        # feature_set: (B, N, K, d)
+        scores = torch.softmax(_linear(self.score, feature_set, dt), dim=-2)
+        agg = (scores * feature_set).sum(dim=-2)            # (B, N, d)
+        return self.mlp(agg, dt)
+
+
+class LocalFeatureAggregation(FlaxNamed):
+    """Two rounds of (spatial encoding, neighbour gather, attentive pool)."""
+
+    def __init__(self, d_out: int):
+        super().__init__()
+        h = d_out // 2
+        self.child("SharedMLP", SharedMLP(10, h), "mlp1")
+        self.child("AttPooling", AttPooling(2 * h, h), "pool1")
+        self.child("SharedMLP", SharedMLP(h, h), "mlp2")
+        self.child("AttPooling", AttPooling(2 * h, d_out), "pool2")
+
+    def forward(self, xyz, feature, neigh_idx, dt):
+        # xyz (B, N, 3) f32; feature (B, N, d_out // 2); neigh_idx (B, N, K)
+        neigh_xyz = _gather(xyz, neigh_idx)                 # (B, N, K, 3)
+        f_neigh = _gather(feature, neigh_idx)
+        f_xyz = self.mlp1(encode_neighbor_xyz(xyz, neigh_xyz), dt)
+        f_agg = self.pool1(torch.cat([f_neigh, f_xyz], dim=-1), dt)
+        f_xyz = self.mlp2(f_xyz, dt)
+        f_neigh = _gather(f_agg, neigh_idx)
+        return self.pool2(torch.cat([f_neigh, f_xyz], dim=-1), dt)
+
+
+class DilatedResBlock(FlaxNamed):
+    """mlp(d/2) -> LFA -> mlp(2d, linear) + shortcut(2d, linear) -> leaky."""
+
+    def __init__(self, d_in: int, d_out: int):
+        super().__init__()
+        self.child("SharedMLP", SharedMLP(d_in, d_out // 2), "mlp1")
+        self.child(
+            "LocalFeatureAggregation", LocalFeatureAggregation(d_out), "lfa"
+        )
+        self.child(
+            "SharedMLP", SharedMLP(d_out, 2 * d_out, activation=False), "mlp2"
+        )
+        self.child(
+            "SharedMLP", SharedMLP(d_in, 2 * d_out, activation=False), "shortcut"
+        )
+
+    def forward(self, xyz, feature, neigh_idx, dt):
+        f_pc = self.mlp1(feature, dt)
+        f_pc = self.lfa(xyz, f_pc, neigh_idx, dt)
+        f_pc = self.mlp2(f_pc, dt)
+        return F.leaky_relu(f_pc + self.shortcut(feature, dt), 0.2)
+
+
+def _max_pool(feature: torch.Tensor, pool_idx: torch.Tensor) -> torch.Tensor:
+    """(B, N, d), (B, M, K) -> (B, M, d): max over gathered neighbours."""
+    return _gather(feature, pool_idx).amax(dim=-2)
+
+
+def _interp(feature: torch.Tensor, interp_idx: torch.Tensor) -> torch.Tensor:
+    """(B, M, d), (B, N, 1) -> (B, N, d): nearest-neighbour up-sample."""
+    return _gather(feature, interp_idx)[:, :, 0]
+
+
+class RandLANet(FlaxNamed):
+    """Encoder-decoder over the decimation pyramid."""
+
+    def __init__(self, config: PointSegConfig):
+        super().__init__()
+        cfg = self.config = config
+        self.child("Dense", nn.Linear(3 + cfg.num_features, 8), "fc0")
+        self.child("BatchNorm", BatchNorm(8, 1e-6), "bn0")
+        d_in, skip_ch = 8, []
+        self.encoder = []
+        for i in range(cfg.num_layers):
+            self.encoder.append(self.child(
+                "DilatedResBlock", DilatedResBlock(d_in, cfg.d_out[i])
+            ))
+            d_in = 2 * cfg.d_out[i]
+            if i == 0:
+                skip_ch.append(d_in)
+            skip_ch.append(d_in)
+        self.child("SharedMLP", SharedMLP(d_in, d_in), "bottleneck")
+        self.decoder = []
+        for j in range(cfg.num_layers):
+            c_skip = skip_ch[-j - 2]
+            self.decoder.append(self.child(
+                "SharedMLP", SharedMLP(c_skip + d_in, c_skip)
+            ))
+            d_in = c_skip
+        self.child("SharedMLP", SharedMLP(d_in, 64), "fc1")
+        self.child("SharedMLP", SharedMLP(64, 32), "fc2")
+        self.child("Dense", nn.Linear(32, cfg.num_classes), "head")
+
+    def compute_dtype(self, device: torch.device) -> torch.dtype:
+        bf16 = self.config.use_bfloat16
+        if bf16 is None:
+            bf16 = device.type == "cuda"
+        return torch.bfloat16 if bf16 else torch.float32
+
+    def forward(
+        self,
+        features: torch.Tensor,   # (B, N, 3 + num_features) = cat(xyz, mods)
+        pyramid: Pyramid,         # batched (leading B on every leaf)
+    ) -> torch.Tensor:
+        dt = self.compute_dtype(features.device)
+        feature = F.leaky_relu(self.bn0(_linear(self.fc0, features, dt)), 0.2)
+
+        skips = []
+        for i, block in enumerate(self.encoder):
+            f_enc = block(pyramid.xyz[i], feature, pyramid.neigh_idx[i], dt)
+            feature = _max_pool(f_enc, pyramid.sub_idx[i])
+            if i == 0:
+                skips.append(f_enc)
+            skips.append(feature)
+
+        feature = self.bottleneck(feature, dt)
+        for j, mlp in enumerate(self.decoder):
+            f_interp = _interp(feature, pyramid.interp_idx[-j - 1])
+            feature = mlp(torch.cat([skips[-j - 2], f_interp], dim=-1), dt)
+
+        x = self.fc2(self.fc1(feature, dt), dt)
+        # dropout is the identity at inference; the last Linear stays f32
+        return F.linear(x.float(), self.head.weight, self.head.bias)
+
+
+def _he_truncated_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """flax variance_scaling(2.0, "fan_out", "truncated_normal") on a
+    Linear weight (out, in): std sqrt(2 / fan_out) / 0.8796..., cut at
+    +-2 std (the inverse-CDF draw of torch's trunc_normal_)."""
+    std = math.sqrt(2.0 / w.shape[0]) / 0.87962566103423978
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    hi = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
+    with torch.no_grad():
+        w.uniform_(2 * lo - 1, 2 * hi - 1, generator=generator)
+        w.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2 * std, 2 * std)
+
+
+def _glorot_uniform_(w: torch.Tensor, generator: torch.Generator) -> None:
+    limit = math.sqrt(6.0 / (w.shape[0] + w.shape[1]))
+    with torch.no_grad():
+        w.uniform_(-limit, limit, generator=generator)
+
+
+def init_randlanet(
+    config: PointSegConfig, generator: torch.Generator
+) -> RandLANet:
+    """A ``RandLANet`` with the reference's initialisation drawn from
+    ``generator`` (CPU): He truncated-normal over fan_out for the
+    SharedMLP Linears and the head, glorot-uniform for fc0 and the
+    attention scores, zero biases, identity batch norms. In eval mode."""
+    model = RandLANet(config)
+    glorot = {id(model.fc0)} | {
+        id(m.score) for m in model.modules() if isinstance(m, AttPooling)
+    }
+    for m in model.modules():
+        if isinstance(m, nn.Linear):
+            if id(m) in glorot:
+                _glorot_uniform_(m.weight, generator)
+            else:
+                _he_truncated_normal_(m.weight, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+    return model.eval()

@@ -1,0 +1,273 @@
+"""Saliency-attention 3-D U-Net (``pointunet_tpu/models/saliency_unet.py``).
+
+The attention variant (``SaliencyUNet``): residual encoder with filter
+growth, CFE atrous context blocks (rates 3/5/7) on the three deepest
+scales, channel attention on the fused high-level features and a spatial
+attention gate on the low-level ones. It runs channels-first: input
+(B, C, D, H, W), logits (B, num_class, D, H, W) in f32. Inference only;
+the plain ``UNet3D`` is not ported yet.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..core.config import SaliencyConfig
+from .attention3d import ChannelWiseAttention3D, SpatialAttention3D
+from .fastconv import Conv
+from .naming import FlaxNamed
+from .norms import NormRelu
+
+
+def _avg_pool(x: torch.Tensor, s: int) -> torch.Tensor:
+    """s^3 VALID average pool of (B, C, D, H, W) as a reshape-mean, which
+    every backend runs in bf16 (CPU has no bf16 avg_pool3d)."""
+    b, c, d, h, w = x.shape
+    d, h, w = d // s, h // s, w // s
+    x = x[:, :, :d * s, :h * s, :w * s]
+    return x.reshape(b, c, d, s, h, s, w, s).mean(dim=(3, 5, 7))
+
+
+class ConvNormRelu(FlaxNamed):
+    def __init__(
+        self,
+        in_features: int,
+        features: int,
+        kernel=(3, 3, 3),
+        strides=(1, 1, 1),
+        dilation=(1, 1, 1),
+        instance_norm: bool = True,
+        dtype: Optional[torch.dtype] = None,
+        use_bias: bool = True,
+        upsample: int = 1,
+    ):
+        super().__init__()
+        self.child("Conv", Conv(
+            in_features, features, kernel, strides=strides,
+            kernel_dilation=dilation, upsample=upsample, use_bias=use_bias,
+            dtype=dtype,
+        ), "conv")
+        self.child("NormRelu", NormRelu(features, instance_norm), "norm")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.norm(self.conv(x))
+
+
+class UNetBlock(FlaxNamed):
+    """Two 3x3x3 convs with optional residual add."""
+
+    def __init__(self, in_features, features, residual=True,
+                 instance_norm=True, dtype=None):
+        super().__init__()
+        self.residual = residual
+        self.convs = [
+            self.child("ConvNormRelu", ConvNormRelu(
+                cin, features, instance_norm=instance_norm, dtype=dtype,
+            ))
+            for cin in (in_features, features)
+        ]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x
+        for conv in self.convs:
+            h = conv(h)
+        return x + h if self.residual else h
+
+
+class CFE3D(FlaxNamed):
+    """Context feature extraction: 1x1 conv + three atrous 3x3x3 convs
+    (rates 3, 5, 7), concatenated: 4 * features channels."""
+
+    def __init__(self, in_features, features=32, instance_norm=True,
+                 dtype=None):
+        super().__init__()
+        self.branches = [self.child("ConvNormRelu", ConvNormRelu(
+            in_features, features, kernel=(1, 1, 1), use_bias=False,
+            instance_norm=instance_norm, dtype=dtype,
+        ))]
+        for rate in (3, 5, 7):
+            self.branches.append(self.child("ConvNormRelu", ConvNormRelu(
+                in_features, features, dilation=(rate,) * 3, use_bias=False,
+                instance_norm=instance_norm, dtype=dtype,
+            )))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([b(x) for b in self.branches], dim=1)
+
+
+class UpsampleConv(FlaxNamed):
+    """Nearest upsample + 3x3x3 conv."""
+
+    def __init__(self, in_features, scale, features, instance_norm=True,
+                 dtype=None):
+        super().__init__()
+        self.child("ConvNormRelu", ConvNormRelu(
+            in_features, features, upsample=scale,
+            instance_norm=instance_norm, dtype=dtype,
+        ), "cnr")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cnr(x)
+
+
+class _Encoder(FlaxNamed):
+    """Init conv + depth x (block, strided downsample); returns the
+    per-scale features and their channel counts."""
+
+    def __init__(self, config: SaliencyConfig):
+        super().__init__()
+        cfg = config
+        inorm = cfg.instance_norm
+        dt = torch.bfloat16 if cfg.use_bfloat16 else None
+        self.child("ConvNormRelu", ConvNormRelu(
+            cfg.in_channels, cfg.base_filter, instance_norm=inorm, dtype=dt,
+        ), "init")
+        ch = cfg.base_filter
+        self.stages = []
+        self.channels = []
+        for d in range(cfg.depth):
+            filters = (
+                cfg.base_filter * (2 ** d) if cfg.filter_grow
+                else cfg.base_filter
+            )
+            # (names count per class, so creating the 1x1 match before the
+            # block leaves both names as the reference assigns them)
+            match = None
+            if cfg.residual and ch != filters:
+                match = self.child("ConvNormRelu", ConvNormRelu(
+                    ch, filters, kernel=(1, 1, 1), instance_norm=inorm,
+                    dtype=dt,
+                ))
+                ch = filters
+            block = self.child("UNetBlock", UNetBlock(
+                ch, filters, residual=cfg.residual,
+                instance_norm=inorm, dtype=dt,
+            ))
+            self.channels.append(filters)
+            down = None
+            if d != cfg.depth - 1:
+                down = self.child("ConvNormRelu", ConvNormRelu(
+                    filters, filters * 2, strides=(2, 2, 2),
+                    instance_norm=inorm, dtype=dt,
+                ))
+                ch = filters * 2
+            self.stages.append((match, block, down))
+
+    def forward(self, x: torch.Tensor):
+        x = self.init(x)
+        down = []
+        for match, block, strided in self.stages:
+            if match is not None:
+                x = match(x)
+            x = block(x)
+            down.append(x)
+            if strided is not None:
+                x = strided(x)
+        return down
+
+
+class SaliencyUNet(FlaxNamed):
+    """unet3d_attention: (B, C, D, H, W) -> (B, num_class, D, H, W) f32."""
+
+    def __init__(self, config: SaliencyConfig):
+        super().__init__()
+        cfg = self.config = config
+        inorm = cfg.instance_norm
+        dt = torch.bfloat16 if cfg.use_bfloat16 else None
+        self.child("_Encoder", _Encoder(cfg), "encoder")
+        ch = self.encoder.channels
+
+        def cnr(alias, cin, cout, **kw):
+            self.child("ConvNormRelu", ConvNormRelu(
+                cin, cout, instance_norm=inorm, dtype=dt, **kw
+            ), alias)
+
+        def up(alias, cin, scale, cout):
+            self.child("UpsampleConv", UpsampleConv(
+                cin, scale, cout, inorm, dt
+            ), alias)
+
+        # creation order fixes the flax names (ConvNormRelu_0 .. _3, ...)
+        cnr("c1", ch[0], 64)
+        cnr("c2", ch[1], 64)
+        self.cfe = [
+            self.child("CFE3D", CFE3D(c, 32, inorm, dt)) for c in ch[2:5]
+        ]
+        up("up_c5", 128, 4, 128)
+        up("up_c4", 128, 2, 128)
+        self.ca = self.sa = None
+        if cfg.ca_attention:
+            self.child(
+                "ChannelWiseAttention3D", ChannelWiseAttention3D(384), "ca"
+            )
+        cnr("c345", 384, 64, kernel=(1, 1, 1))
+        up("up_c345", 64, 4, 64)
+        if cfg.sa_attention:
+            self.child("SpatialAttention3D", SpatialAttention3D(
+                64, inorm, dtype=dt, broadcast=cfg.sa_gate_stride == 1,
+            ), "sa")
+        up("up_c2", 64, 2, 64)
+        cnr("c12", 128, 64)
+        self.child("Conv", Conv(128, cfg.num_class, 3, dtype=dt), "head")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.config
+        down = self.encoder(x)
+        c1 = self.c1(down[0])
+        c2 = self.c2(down[1])
+        c3, c4, c5 = (cfe(d) for cfe, d in zip(self.cfe, down[2:5]))
+        c5 = self.up_c5(c5)
+        c4 = self.up_c4(c4)
+        c345 = torch.cat([c3, c4, c5], dim=1)
+        if self.ca is not None:
+            c345 = self.ca(c345)
+        c345 = self.up_c345(self.c345(c345))
+
+        if self.sa is not None:
+            s = cfg.sa_gate_stride
+            if s > 1:
+                # gate convs on a pooled input, the 1-channel gate resized
+                # back (broadcasts over C in the multiply below)
+                sa = self.sa(_avg_pool(c345, s))
+                sa = F.interpolate(
+                    sa, size=c345.shape[2:], mode="trilinear",
+                    align_corners=False,
+                )
+            else:
+                sa = self.sa(c345)
+
+        c2 = self.up_c2(c2)
+        c12 = self.c12(torch.cat([c1, c2], dim=1))
+        if self.sa is not None:
+            c12 = sa.to(c12.dtype) * c12
+        fea = torch.cat([c12, c345], dim=1)
+        return self.head(fea).float()
+
+
+def _glorot_uniform_(w: torch.Tensor, generator: torch.Generator) -> None:
+    """flax ``glorot_uniform`` on a torch-layout weight: Linear (out, in) or
+    Conv3d (out, in, *k)."""
+    rf = math.prod(w.shape[2:]) if w.ndim > 2 else 1
+    fan_out, fan_in = w.shape[0] * rf, w.shape[1] * rf
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        w.uniform_(-limit, limit, generator=generator)
+
+
+def init_saliency_unet(
+    config: SaliencyConfig, generator: torch.Generator
+) -> SaliencyUNet:
+    """A ``SaliencyUNet`` with the reference's initialisation drawn from
+    ``generator`` (CPU): glorot-uniform convs and dense layers, zero
+    biases, unit/zero norm affines. In eval mode."""
+    model = SaliencyUNet(config)
+    for m in model.modules():
+        if isinstance(m, (Conv, nn.Linear)):
+            _glorot_uniform_(m.weight, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+    return model.eval()

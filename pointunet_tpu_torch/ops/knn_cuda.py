@@ -1,0 +1,228 @@
+"""Cell-window KNN: the hand-written CUDA kernel and its plain version.
+
+Replaces ``pointunet_tpu/ops/knn_pallas.py:knn_pallas_core`` (kernel body
+``_kernel_factory``), the one TPU kernel on the fused inference path: the
+pyramid calls it for the self-KNN and the 1-NN up search of every level
+larger than ``GRID_THRESHOLD`` points (ops/pyramid.py).
+
+Inputs follow the sorted-pyramid contract: support and queries are sorted
+by raster cell id ``(cx * r + cy) * r + cz`` of one grid, ``cell_start``
+holds the support's cell prefix sums, and the result is (Nq, k) int32 rows
+of the sorted support. Candidates are the support rows in the 27 cells
+around the query's cell, read as 9 exact (dx, dy) spans with a z-halo of
+1; neighbours come nearest first, ties to the lower row, and a slot with
+no neighbour takes the first neighbour found (row 0 if none).
+
+* ``knn_cell_window_plain`` computes that in plain torch, chunked over
+  queries. The CPU path and the comparison on the card use it.
+* ``knn_cell_window`` is the wrapper: the plain version for CPU tensors;
+  for CUDA tensors it launches the kernel of ``csrc/knn_cell_window.cu``
+  or raises. ``LAUNCHES`` counts its kernel launches.
+
+The kernel's source note says what bounds it on the H100 and how its
+design answers that. The library is compiled with ``nvcc`` at first use
+into ``pointunet_tpu_torch/_build/`` (ignored by git), under a name keyed
+on a hash of the source, and loaded with ctypes.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+# kernel launches made by ``knn_cell_window`` in this process
+LAUNCHES = 0
+
+# the k the kernel is instantiated for: the pyramid's self search (16)
+# and up search (1); the plain version takes any k
+KERNEL_KS = (1, 16)
+PLAIN_CHUNK = 4096      # queries per candidate block of the plain version
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "knn_cell_window.cu"
+BUILD_DIR = _PKG / "_build"
+_lib = None
+
+# the 9 (dx, dy) column offsets in ascending sorted-row order
+_OFFSETS = [(dx, dy) for dx in (-1, 0, 1) for dy in (-1, 0, 1)]
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin and PATH); the KNN "
+            "kernel is built from source at first use"
+        )
+    return found
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"knn_cell_window_{digest}.so"
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library. The
+    compiler's report (``-Xptxas -v``: registers, spills) is kept beside
+    it as ``.log``."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    so = library_path()
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        cmd = [
+            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v", "-o", str(tmp), str(SOURCE),
+        ]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
+            )
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    fn = lib.knn_cell_window_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p
+    ]
+    fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def cell_prefix_sums(ids_sorted: torch.Tensor, r: int) -> torch.Tensor:
+    """(r^3 + 1,) int32 ``cell_start``: rows of cell c are
+    ``cell_start[c] .. cell_start[c + 1]`` of the id-sorted cloud."""
+    counts = torch.bincount(ids_sorted.long(), minlength=r * r * r)
+    out = torch.zeros(r * r * r + 1, dtype=torch.int32, device=ids_sorted.device)
+    out[1:] = torch.cumsum(counts, 0).to(torch.int32)
+    return out
+
+
+def _spans(qc: torch.Tensor, cell_start: torch.Tensor, r: int):
+    """(start, length) of the 9 (dx, dy) spans of each query, (Q, 9)."""
+    off = torch.tensor(_OFFSETS, dtype=torch.long, device=qc.device)
+    qc = qc.long()
+    x = qc[:, 0:1] + off[:, 0]
+    y = qc[:, 1:2] + off[:, 1]
+    inside = (x >= 0) & (x < r) & (y >= 0) & (y < r)
+    z0 = (qc[:, 2:3] - 1).clamp(min=0)
+    z1 = (qc[:, 2:3] + 1).clamp(max=r - 1)
+    base = (x.clamp(0, r - 1) * r + y.clamp(0, r - 1)) * r
+    start = cell_start[base + z0].long()
+    end = cell_start[base + z1 + 1].long()
+    length = torch.where(inside & (z0 <= z1), end - start, 0)
+    return start, length
+
+
+def knn_cell_window_plain(
+    sp: torch.Tensor,          # (Ns, 3) f32 support, cell-id sorted
+    cell_start: torch.Tensor,  # (r^3 + 1,) int32 prefix sums
+    qp: torch.Tensor,          # (Nq, 3) f32 queries, cell-id sorted
+    qc: torch.Tensor,          # (Nq, 3) int32 query cells
+    k: int,
+    r: int,
+) -> torch.Tensor:
+    """The kernel's function in plain torch: (Nq, k) int32 sorted-support
+    rows. Candidates of a query chunk are laid out span after span in
+    ascending row order; a stable sort by d^2 then orders them by
+    (d^2, row), as the kernel's insertion list does."""
+    nq = qp.shape[0]
+    out = torch.zeros((nq, k), dtype=torch.int32, device=qp.device)
+    for q0 in range(0, nq, PLAIN_CHUNK):
+        q = qp[q0:q0 + PLAIN_CHUNK]
+        start, length = _spans(qc[q0:q0 + PLAIN_CHUNK], cell_start, r)
+        cum = torch.cumsum(length, 1)                       # (Q, 9)
+        total = cum[:, -1]
+        width = int(total.max()) if total.numel() else 0
+        if width == 0:
+            continue                                        # all rows -> 0
+        j = torch.arange(width, device=qp.device).expand(q.shape[0], width)
+        grp = torch.searchsorted(cum, j.contiguous(), right=True).clamp(max=8)
+        valid = j < total[:, None]
+        row = start.gather(1, grp) + j - (cum - length).gather(1, grp)
+        row = torch.where(valid, row, 0)
+        s = sp[row]                                         # (Q, W, 3)
+        ex = q[:, None, 0] - s[..., 0]
+        ey = q[:, None, 1] - s[..., 1]
+        ez = q[:, None, 2] - s[..., 2]
+        d2 = ex * ex + ey * ey + ez * ez
+        d2 = torch.where(valid, d2, torch.inf)
+        kk = min(k, width)
+        dsort, pos = torch.sort(d2, dim=1, stable=True)
+        idx = row.gather(1, pos[:, :kk])
+        found = torch.isfinite(dsort[:, :kk])
+        if kk < k:
+            pad = k - kk
+            idx = torch.cat([idx, idx.new_zeros((idx.shape[0], pad))], 1)
+            found = torch.cat([found, found.new_zeros((found.shape[0], pad))], 1)
+        first = torch.where(found[:, :1], idx[:, :1], 0)
+        out[q0:q0 + PLAIN_CHUNK] = torch.where(found, idx, first).to(torch.int32)
+    return out
+
+
+def knn_cell_window(
+    sp: torch.Tensor,
+    cell_start: torch.Tensor,
+    qp: torch.Tensor,
+    qc: torch.Tensor,
+    k: int,
+    r: int,
+) -> torch.Tensor:
+    """Cell-window KNN over sorted clouds (see the module docstring).
+
+    CPU tensors take the plain version. CUDA tensors launch the kernel;
+    anything the kernel does not take raises."""
+    global LAUNCHES
+    tensors = (sp, cell_start, qp, qc)
+    if all(t.device.type == "cpu" for t in tensors):
+        return knn_cell_window_plain(sp, cell_start, qp, qc, k, r)
+    dev = sp.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(
+            "knn_cell_window: inputs must all be on the CPU or all on one "
+            f"CUDA device, got {[str(t.device) for t in tensors]}"
+        )
+    ns, nq = sp.shape[0], qp.shape[0]
+    if k not in KERNEL_KS:
+        raise ValueError(
+            f"knn_cell_window: the kernel takes k in {KERNEL_KS}, got {k}"
+        )
+    if ns < 1:
+        raise ValueError("knn_cell_window: empty support")
+    for name, t, dt, shape in (
+        ("sp", sp, torch.float32, (ns, 3)),
+        ("qp", qp, torch.float32, (nq, 3)),
+        ("qc", qc, torch.int32, (nq, 3)),
+        ("cell_start", cell_start, torch.int32, (r * r * r + 1,)),
+    ):
+        if t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(
+                f"knn_cell_window: {name} must be contiguous {dt} {shape}, "
+                f"got {t.dtype} {tuple(t.shape)}"
+            )
+    out = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    fn = load_library().knn_cell_window_launch
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = fn(
+            sp.data_ptr(), cell_start.data_ptr(), qp.data_ptr(),
+            qc.data_ptr(), out.data_ptr(), ns, nq, k, r, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"knn_cell_window: kernel launch failed, CUDA error {rc}")
+    LAUNCHES += 1
+    return out

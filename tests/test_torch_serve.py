@@ -1,0 +1,102 @@
+"""The port's serving entry point (pointunet_tpu_torch/cli/serve.py), its
+independence from JAX, its configs, and the refusal of chip_smoke.py to
+run without a card."""
+import dataclasses
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from pointunet_tpu.core import config as ref_config
+from pointunet_tpu_torch.core import config as port_config
+from pointunet_tpu_torch.data import nifti
+from util_synthetic import make_brats_case
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_serve_once_on_cpu(tmp_path):
+    from pointunet_tpu_torch.cli import serve
+
+    inbox, outbox = tmp_path / "in", tmp_path / "out"
+    _, seg = make_brats_case(str(inbox), "case_a")
+    argv = ["--inbox", str(inbox), "--outbox", str(outbox), "--once",
+            "--device", "cpu", "--n_point", "4096"]
+    assert serve.main(argv).served == 1
+    labels = nifti.load(str(outbox / "case_a.nii.gz")).data
+    assert labels.shape == seg.shape and labels.dtype == np.uint8
+    assert set(np.unique(labels)) <= {0, 1, 2, 4}
+    rec = json.loads((outbox / "case_a.json").read_text())
+    assert rec["case"] == "case_a" and rec["latency_s"] >= 0
+    assert rec["voxels"] == int((labels > 0).sum()) <= 4096
+    # restart-safe: a served case is not served again
+    assert serve.main(argv).served == 0
+
+
+def test_port_imports_no_jax():
+    """Neither the port nor chip_smoke.py loads JAX or any module of the
+    JAX package (``pointunet_tpu``)."""
+    code = (
+        "import sys\n"
+        "import pointunet_tpu_torch.cli.serve, pointunet_tpu_torch.convert\n"
+        "import pointunet_tpu_torch.ops, pointunet_tpu_torch.models\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in\n"
+        "             ('jax', 'flax', 'orbax', 'optax', 'pointunet_tpu'))\n"
+        "print(bad)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120, check=True,
+    ).stdout
+    assert out.strip() == "[]", out
+
+
+@pytest.mark.parametrize("name", ["PointSegConfig", "SaliencyConfig"])
+def test_config_fields_match_reference(name):
+    ref = getattr(ref_config, name)
+    port = getattr(port_config, name)
+    ref_fields = [(f.name, f.default) for f in dataclasses.fields(ref)]
+    port_fields = [(f.name, f.default) for f in dataclasses.fields(port)]
+    assert port_fields == ref_fields
+
+
+@pytest.mark.parametrize("helper", [
+    "brats_pointseg_config", "pancreas_pointseg_config",
+    "brats_saliency_config", "pancreas_saliency_config",
+])
+def test_config_helpers_match_reference(helper):
+    ref = getattr(ref_config, helper)(use_bfloat16=True)
+    port = getattr(port_config, helper)(use_bfloat16=True)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    if "pointseg" in helper:
+        assert port.level_sizes == ref.level_sizes
+        assert port.class_weights() == ref.class_weights()
+
+
+def _run_smoke(cwd):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=cwd, capture_output=True,
+        text=True, timeout=120, env=env,
+    )
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    """No CUDA device: non-zero exit and no result line, in the repo and
+    in a directory that holds chip_smoke.py alone."""
+    alone = tmp_path / "alone"
+    alone.mkdir()
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), alone)
+    for cwd in (REPO, str(alone)):
+        proc = _run_smoke(cwd)
+        assert proc.returncode != 0, cwd
+        assert '"ok"' not in proc.stdout, cwd
