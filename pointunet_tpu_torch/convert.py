@@ -14,6 +14,12 @@ only the leaf is converted:
 
 Every key must land on a port tensor of the same shape, and every port
 tensor must be given: anything else raises. This module needs no JAX.
+
+``convert_train_state`` carries a reference point-seg ``TrainState`` over
+to the port's trainer: ``params``/``batch_stats`` as above, optax's Adam
+moments ``mu/<path>``/``nu/<path>`` (keyed like ``params``, same leaf
+transposes) into ``torch.optim.Adam``'s ``exp_avg``/``exp_avg_sq``, its
+``count`` into Adam's ``step``, and the trainer's ``step``.
 """
 from __future__ import annotations
 
@@ -45,7 +51,14 @@ def convert_variables(
 ) -> Dict[str, torch.Tensor]:
     """Map flat flax variables onto ``model``'s state_dict keys and
     layouts (see the module docstring); raises on any mismatch."""
-    target = model.state_dict()
+    return convert_leaves(flat, model.state_dict())
+
+
+def convert_leaves(
+    flat: Dict[str, np.ndarray], target: Dict[str, torch.Tensor]
+) -> Dict[str, torch.Tensor]:
+    """``flat`` onto exactly the keys of ``target`` (port tensors by
+    state_dict name), leaf by leaf; raises on any mismatch."""
     out = {}
     for key, value in flat.items():
         collection, *path, leaf = key.split("/")
@@ -82,3 +95,49 @@ def convert_saliency(
 ) -> Dict[str, torch.Tensor]:
     """``SaliencyUNet`` state_dict from flat reference variables."""
     return convert_variables(flat, SaliencyUNet(config))
+
+
+def convert_train_state(
+    flat: Dict[str, np.ndarray], model: torch.nn.Module,
+    betas=(0.9, 0.999), eps: float = 1e-8,
+) -> dict:
+    """A flat reference train state (``params/...``, ``batch_stats/...``,
+    ``mu/...``, ``nu/...``, ``count``, ``step``) -> ``{"model": state_dict,
+    "optimizer": Adam state_dict, "step": int}`` for ``model``, which
+    ``TrainState.load_state_dict`` takes. Raises on any key or shape
+    mismatch."""
+    groups: Dict[str, Dict[str, np.ndarray]] = {
+        "variables": {}, "mu": {}, "nu": {},
+    }
+    scalars = {}
+    for key, value in flat.items():
+        head, _, rest = key.partition("/")
+        if head in ("params", "batch_stats"):
+            groups["variables"][key] = value
+        elif head in ("mu", "nu") and rest:
+            groups[head]["params/" + rest] = value
+        elif key in ("count", "step"):
+            scalars[key] = int(np.asarray(value))
+        else:
+            raise KeyError(f"unconvertible train-state entry {key!r}")
+    if set(scalars) != {"count", "step"}:
+        raise KeyError(f"train state lacks {sorted({'count', 'step'} - set(scalars))}")
+    params = dict(model.named_parameters())
+    moments = {
+        which: convert_leaves(groups[which], params) for which in ("mu", "nu")
+    }
+    opt = torch.optim.Adam(model.parameters(), betas=betas, eps=eps)
+    opt_state = opt.state_dict()
+    opt_state["state"] = {
+        i: {
+            "step": torch.tensor(float(scalars["count"])),
+            "exp_avg": moments["mu"][name],
+            "exp_avg_sq": moments["nu"][name],
+        }
+        for i, name in enumerate(params)
+    }
+    return {
+        "model": convert_variables(groups["variables"], model),
+        "optimizer": opt_state,
+        "step": scalars["step"],
+    }

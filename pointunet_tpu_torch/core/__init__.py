@@ -1,6 +1,7 @@
 from .config import (
     PointSegConfig,
     SaliencyConfig,
+    TrainConfig,
     brats_pointseg_config,
     brats_saliency_config,
     pancreas_pointseg_config,
@@ -10,6 +11,7 @@ from .config import (
 __all__ = [
     "PointSegConfig",
     "SaliencyConfig",
+    "TrainConfig",
     "brats_pointseg_config",
     "brats_saliency_config",
     "pancreas_pointseg_config",

@@ -4,7 +4,8 @@ A jax-free copy of ``pointunet_tpu/core/config.py``: importing the
 reference's ``pointunet_tpu.core`` pulls in its checkpoint module (orbax,
 jax), which a machine running only the port does not have. The fields and
 defaults are the reference's, field for field (tests/test_torch_serve.py
-holds them equal).
+holds them equal), except that ``TrainConfig`` has no ``mesh``: the port
+runs on one card, and its multi-device path is not ported yet.
 """
 from __future__ import annotations
 
@@ -124,3 +125,18 @@ def pancreas_saliency_config(**overrides) -> SaliencyConfig:
     return dataclasses.replace(
         SaliencyConfig(num_class=2, in_channels=1), **overrides
     )
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Shared training-loop knobs: the reference's, without ``mesh`` (one
+    card) and ``donate_state`` (the trainer mutates its state in place)."""
+
+    seed: int = 0
+    log_every: int = 10
+    checkpoint_dir: str = "model_logs"
+    max_to_keep: int = 100
+    debug_nans: bool = False
+    profile_dir: str = ""
+    # background host prefetch depth for batch iterators; 0 disables
+    prefetch_buffers: int = 4

@@ -17,22 +17,47 @@ from .naming import FlaxNamed
 
 
 class BatchNorm(nn.Module):
-    """Inference batch norm over the LAST axis, in the reference's
-    arithmetic: (x - mean) * (rsqrt(var + eps) * scale) + bias. State
-    names follow torch (weight, bias, running_mean, running_var)."""
+    """Batch norm over the LAST axis in flax's arithmetic
+    (``flax.linen.BatchNorm``): (x - mean) * (rsqrt(var + eps) * scale) +
+    bias. State names follow torch (weight, bias, running_mean,
+    running_var).
 
-    def __init__(self, features: int, eps: float):
+    Eval mode normalises with the running statistics. Train mode takes
+    the batch's: mean and ``var = max(0, E[x^2] - E[x]^2)`` (biased) over
+    every axis but the last, in f32, normalises in f32 and returns the
+    input's dtype; then ``running = m * running + (1 - m) * batch`` with
+    ``m = momentum`` (flax's convention: 0.99 keeps 99 % of the old
+    value, the opposite of ``nn.BatchNorm1d``'s)."""
+
+    def __init__(self, features: int, eps: float, momentum: float):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            return self._train_forward(x)
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         dt = x.dtype
         return (x - self.running_mean.to(dt)) * mul.to(dt) + self.bias.to(dt)
+
+    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        dims = tuple(range(x.ndim - 1))
+        mean = x32.mean(dims)
+        var = torch.clamp(
+            (x32 * x32).mean(dims) - mean * mean, min=0.0
+        )
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(m).add_((1 - m) * mean)
+            self.running_var.mul_(m).add_((1 - m) * var)
+        y = (x32 - mean) * (torch.rsqrt(var + self.eps) * self.weight)
+        return (y + self.bias).to(x.dtype)
 
 
 class GroupNorm(nn.GroupNorm):

@@ -1,0 +1,92 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel source in ``pointunet_tpu_torch/csrc/`` exports a plain C
+launch function. ``build_all(sources)`` compiles sources in parallel (one
+``nvcc`` each); ``load(source, symbol, argtypes)`` compiles the source
+with ``nvcc`` for ``sm_90a`` at first use into ``pointunet_tpu_torch/_build/``
+(ignored by git), under a name keyed on a hash of the source, keeps the
+compiler's ``-Xptxas -v`` report (registers, spills) beside the library as
+``.log``, loads it with ctypes and returns the typed launch function.
+Nothing is built when a module is imported: the CPU tests import every
+module and have no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List, Sequence
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+_loaded: Dict[Path, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin and PATH); the CUDA "
+            "kernels are built from source at first use"
+        )
+    return found
+
+
+def library_path(source: Path) -> Path:
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+    return BUILD_DIR / f"{source.stem}_{digest}.so"
+
+
+def build_all(sources: Sequence[Path]) -> List[Path]:
+    """Compile each source whose hash has no library yet, one ``nvcc``
+    per source, all started together; the libraries' paths."""
+    jobs = []
+    for source in sources:
+        so = library_path(source)
+        if so.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+        cmd = [
+            nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+            "-Xptxas", "-v", "-o", str(tmp), str(source),
+        ]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        jobs.append((source, so, tmp, proc))
+    failed = []
+    for source, so, tmp, proc in jobs:
+        out, _ = proc.communicate()
+        so.with_suffix(".log").write_text(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {source.name} "
+                          f"({proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [library_path(s) for s in sources]
+
+
+def load(source: Path, symbol: str, argtypes: Sequence) -> ctypes.CDLL:
+    """Build (once per source hash) and load ``source``'s library, with
+    ``symbol`` typed as ``int symbol(*argtypes)``."""
+    lib = _loaded.get(source)
+    if lib is None:
+        lib = ctypes.CDLL(str(build_all([source])[0]))
+        fn = getattr(lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _loaded[source] = lib
+    return lib

@@ -20,20 +20,16 @@ no neighbour takes the first neighbour found (row 0 if none).
   or raises. ``LAUNCHES`` counts its kernel launches.
 
 The kernel's source note says what bounds it on the H100 and how its
-design answers that. The library is compiled with ``nvcc`` at first use
-into ``pointunet_tpu_torch/_build/`` (ignored by git), under a name keyed
-on a hash of the source, and loaded with ctypes.
+design answers that. The library is built and loaded by
+``ops/cuda_build.py`` at first use.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
+
+from . import cuda_build
 
 # kernel launches made by ``knn_cell_window`` in this process
 LAUNCHES = 0
@@ -42,65 +38,16 @@ LAUNCHES = 0
 # and up search (1); the plain version takes any k
 KERNEL_KS = (1, 16)
 PLAIN_CHUNK = 4096      # queries per candidate block of the plain version
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "knn_cell_window.cu"
-BUILD_DIR = _PKG / "_build"
-_lib = None
+SOURCE = cuda_build.CSRC / "knn_cell_window.cu"
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 # the 9 (dx, dy) column offsets in ascending sorted-row order
 _OFFSETS = [(dx, dy) for dx in (-1, 0, 1) for dy in (-1, 0, 1)]
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(
-            "nvcc not found (looked in $CUDA_HOME/bin and PATH); the KNN "
-            "kernel is built from source at first use"
-        )
-    return found
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"knn_cell_window_{digest}.so"
-
-
 def load_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library. The
-    compiler's report (``-Xptxas -v``: registers, spills) is kept beside
-    it as ``.log``."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    so = library_path()
-    if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-        cmd = [
-            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-            "-Xptxas", "-v", "-o", str(tmp), str(SOURCE),
-        ]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
-            )
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    fn = lib.knn_cell_window_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p
-    ]
-    fn.restype = ctypes.c_int
-    _lib = lib
-    return lib
+    """Build (once per source hash) and load the kernel library."""
+    return cuda_build.load(SOURCE, "knn_cell_window_launch", _ARGTYPES)
 
 
 def cell_prefix_sums(ids_sorted: torch.Tensor, r: int) -> torch.Tensor:

@@ -1,0 +1,248 @@
+"""Training and evaluation of the RandLA-Net point net
+(``pointunet_tpu/train/pointseg.py``).
+
+One train step builds the KNN pyramid on the card (kernel 1), gathers
+the row-aligned features and labels into its level-0 order, runs the
+training forward, the class-weighted cross-entropy, the backward (whose
+K-neighbour gathers run the sorted scatter, kernel 2, on the large
+levels) and an Adam update with optax's defaults (b1 0.9, b2 0.999, eps
+1e-8). The learning rate is ``lr * lr_decay ** (step // train_steps)``,
+read at the update count before the update, as optax's schedule does.
+
+Unlike the reference's pure functions, the state (``TrainState``: model,
+optimizer, step, dropout generator) is mutated in place: ``train_step``
+updates it and returns it. There is no device mesh and no buffer
+donation; the port runs on one card.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Iterable, Optional
+
+import numpy as np
+import torch
+
+from ..core.config import PointSegConfig, TrainConfig
+from ..models.losses import weighted_cross_entropy
+from ..models.randlanet import RandLANet, init_randlanet
+from ..ops.pyramid import Pyramid, build_pyramid_batch, take_level0
+from .metrics import confusion_matrix, iou_from_confusion
+
+ADAM_BETAS = (0.9, 0.999)
+ADAM_EPS = 1e-8
+
+
+@dataclass
+class TrainState:
+    model: RandLANet
+    optimizer: torch.optim.Adam
+    step: int
+    generator: torch.Generator     # dropout keep-masks
+
+    def state_dict(self) -> dict:
+        return {
+            "model": self.model.state_dict(),
+            "optimizer": self.optimizer.state_dict(),
+            "step": self.step,
+            "generator": self.generator.get_state(),
+        }
+
+    def load_state_dict(self, d: dict) -> None:
+        self.model.load_state_dict(d["model"])
+        self.optimizer.load_state_dict(d["optimizer"])
+        self.step = int(d["step"])
+        if "generator" in d:
+            self.generator.set_state(d["generator"])
+
+
+class PointSegTrainer:
+    """Owns the config, the step functions and the epoch loop; the model
+    and optimizer live in the ``TrainState`` it makes."""
+
+    def __init__(
+        self,
+        config: PointSegConfig,
+        train_config: Optional[TrainConfig] = None,
+        device: str = "cuda",
+    ):
+        self.cfg = config
+        self.tcfg = train_config or TrainConfig()
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "PointSegTrainer: no CUDA device; pass device='cpu' to run "
+                "on the CPU"
+            )
+        if self.tcfg.debug_nans:
+            from ..core.debug import enable_nan_trap
+
+            enable_nan_trap(True)
+        self._best_miou = 0.0
+
+    def lr_at(self, step: int) -> float:
+        """The per-epoch decayed learning rate after ``step`` updates."""
+        cfg = self.cfg
+        return cfg.learning_rate * cfg.lr_decay ** (
+            step // max(cfg.train_steps, 1)
+        )
+
+    def init_state(self, seed: int = 0) -> TrainState:
+        model = init_randlanet(self.cfg, torch.Generator().manual_seed(seed))
+        model = model.to(self.device)
+        opt = torch.optim.Adam(
+            model.parameters(), lr=self.lr_at(0), betas=ADAM_BETAS,
+            eps=ADAM_EPS,
+        )
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return TrainState(model, opt, 0, gen)
+
+    def pyramid_fn(self, xyz: torch.Tensor) -> Pyramid:
+        with torch.no_grad():
+            return build_pyramid_batch(
+                xyz, self.cfg.k_n, self.cfg.sub_sampling_ratio
+            )
+
+    def _loss_fn(self, state: TrainState, pyramid, feats, labels):
+        logits = state.model(feats, pyramid, state.generator)
+        cfg = self.cfg
+        loss = weighted_cross_entropy(
+            logits, labels, cfg.class_weights(), cfg.num_classes,
+            cfg.ignored_label_inds,
+        )
+        acc = (logits.argmax(-1) == labels).float().mean()
+        return loss, acc
+
+    def _tensor(self, a, dtype=None) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=dtype).to(self.device)
+
+    def forward_loss(self, state: TrainState, pyramid: Pyramid, feats, labels):
+        """The training forward and loss on a built pyramid: (loss, acc).
+        ``feats`` (B, N, 3 + F) and ``labels`` (B, N) are row-aligned with
+        the input cloud."""
+        feats, labels = take_level0(pyramid, feats, labels)
+        state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        return self._loss_fn(state, pyramid, feats, labels)
+
+    def apply_update(self, state: TrainState) -> None:
+        """One Adam update from the parameters' ``.grad``, at the
+        learning rate of the update count before it."""
+        for group in state.optimizer.param_groups:
+            group["lr"] = self.lr_at(state.step)
+        state.optimizer.step()
+        state.step += 1
+
+    def train_core(self, state: TrainState, pyramid: Pyramid, feats, labels):
+        """Forward, loss, backward and Adam update on a built pyramid;
+        the gradients stay in the parameters' ``.grad``."""
+        loss, acc = self.forward_loss(state, pyramid, feats, labels)
+        loss.backward()
+        self.apply_update(state)
+        return state, {"loss": loss.detach(), "acc": acc.detach()}
+
+    def train_step(self, state: TrainState, xyz, feats, labels):
+        xyz = self._tensor(xyz, torch.float32)
+        pyramid = self.pyramid_fn(xyz)
+        return self.train_core(
+            state, pyramid, self._tensor(feats, torch.float32),
+            self._tensor(labels, torch.long),
+        )
+
+    def eval_step(self, state: TrainState, xyz, feats, labels=None):
+        """Softmax probabilities (B, N, C) in the caller's row order."""
+        xyz = self._tensor(xyz, torch.float32)
+        pyramid = self.pyramid_fn(xyz)
+        feats = take_level0(pyramid, self._tensor(feats, torch.float32))
+        state.model.eval()
+        with torch.no_grad():
+            probs = torch.softmax(state.model(feats, pyramid), dim=-1)
+        inv = torch.argsort(pyramid.order.long(), dim=-1)
+        return probs.gather(1, inv[..., None].expand_as(probs))
+
+    def evaluate(
+        self, state: TrainState, val_iter: Iterable, log: Callable = print
+    ) -> float:
+        """Confusion-matrix mean IoU (%) over a validation iterator."""
+        nc = self.cfg.num_classes
+        conf = np.zeros((nc, nc), np.int64)
+        correct = seen = 0
+        ignored = tuple(self.cfg.ignored_label_inds)
+        # predictions live in the ignored-collapsed class space (the loss
+        # remaps labels); apply the same remap to the raw labels
+        total = nc + len(ignored)
+        remap = np.zeros(total, np.int64)
+        nxt = 0
+        for lab_val in range(total):
+            if lab_val not in ignored:
+                remap[lab_val] = nxt
+                nxt += 1
+        for xyz, feats, labels in val_iter:
+            probs = self.eval_step(state, xyz, feats, labels).cpu().numpy()
+            pred = probs.argmax(-1).reshape(-1)
+            lab = np.asarray(labels).reshape(-1)
+            valid = np.ones_like(lab, bool)
+            for ign in ignored:
+                valid &= lab != ign
+            pred, lab = pred[valid], remap[lab[valid]]
+            conf += confusion_matrix(lab, pred, nc)
+            correct += int((pred == lab).sum())
+            seen += lab.size
+        iou = iou_from_confusion(conf)
+        miou = float(iou.mean()) * 100.0
+        log(
+            f"eval accuracy: {correct / max(seen, 1):.4f}  "
+            f"mean IoU: {miou:.1f}%  per-class "
+            + " ".join(f"{100 * v:5.2f}" for v in iou)
+        )
+        return miou
+
+    def fit(
+        self,
+        state: TrainState,
+        train_epoch_iter: Callable[[], Iterable],
+        val_iter_fn: Optional[Callable[[], Iterable]] = None,
+        checkpointer=None,
+        log: Callable = print,
+        metrics=None,
+    ) -> TrainState:
+        """Epoch loop: train steps, epoch-end eval, best-mIoU checkpoint.
+        ``metrics`` (a ``core.metrics_sink.MetricsLogger``) receives
+        loss/acc/lr every ``log_every`` steps and the mIoU per epoch."""
+        from ..core.debug import StepTimer, format_eta
+        from ..data.prefetch import prefetch
+
+        timer = StepTimer(self.cfg.max_epoch * max(self.cfg.train_steps, 1))
+        for epoch in range(self.cfg.max_epoch):
+            log(f"****EPOCH {epoch}****")
+            epoch_iter = prefetch(
+                train_epoch_iter(), self.tcfg.prefetch_buffers
+            )
+            for i, (xyz, feats, labels) in enumerate(epoch_iter):
+                state, m = self.train_step(state, xyz, feats, labels)
+                if (i + 1) % self.tcfg.log_every == 0:
+                    t = timer.tick(self.tcfg.log_every)
+                    log(
+                        f"Step {state.step:08d} "
+                        f"L_out={float(m['loss']):5.3f} "
+                        f"Acc={float(m['acc']):4.2f} "
+                        f"---{t['ms_per_batch']:8.2f} ms/batch "
+                        f"ETA {format_eta(t['eta_sec'])}"
+                    )
+                    if metrics is not None:
+                        metrics.log(
+                            state.step,
+                            loss=float(m["loss"]),
+                            accuracy=float(m["acc"]),
+                            lr=self.lr_at(state.step),
+                            ms_per_batch=t["ms_per_batch"],
+                        )
+            if val_iter_fn is not None:
+                miou = self.evaluate(state, val_iter_fn(), log)
+                if metrics is not None:
+                    metrics.log(state.step, miou=miou, epoch=epoch)
+                if miou > self._best_miou:
+                    self._best_miou = miou
+                    if checkpointer is not None:
+                        checkpointer.save(state, state.step, miou)
+                log(f"Best m_IoU is: {self._best_miou:5.3f}")
+        return state

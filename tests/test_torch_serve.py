@@ -41,12 +41,20 @@ def test_serve_once_on_cpu(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Neither the port nor chip_smoke.py loads JAX or any module of the
+    """Neither the port (its serving and training entry points, its
+    kernels' wrappers) nor chip_smoke.py loads JAX or any module of the
     JAX package (``pointunet_tpu``)."""
     code = (
         "import sys\n"
         "import pointunet_tpu_torch.cli.serve, pointunet_tpu_torch.convert\n"
         "import pointunet_tpu_torch.ops, pointunet_tpu_torch.models\n"
+        "import pointunet_tpu_torch.cli.run_brats\n"
+        "import pointunet_tpu_torch.cli.profile_train\n"
+        "import pointunet_tpu_torch.train.pointseg\n"
+        "import pointunet_tpu_torch.ops.scatter_sorted\n"
+        "import pointunet_tpu_torch.ops.cuda_build\n"
+        "import pointunet_tpu_torch.core.checkpoint\n"
+        "import pointunet_tpu_torch.data.datasets\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in\n"
@@ -60,11 +68,22 @@ def test_port_imports_no_jax():
     assert out.strip() == "[]", out
 
 
-@pytest.mark.parametrize("name", ["PointSegConfig", "SaliencyConfig"])
+# fields the port leaves out on purpose: TrainConfig's device mesh (the
+# port runs on one card; its multi-device path is not ported yet) and
+# donate_state (the port's trainer mutates its state in place, so there
+# is nothing to donate)
+OMITTED_FIELDS = {"TrainConfig": {"mesh", "donate_state"}}
+
+
+@pytest.mark.parametrize(
+    "name", ["PointSegConfig", "SaliencyConfig", "TrainConfig"]
+)
 def test_config_fields_match_reference(name):
     ref = getattr(ref_config, name)
     port = getattr(port_config, name)
-    ref_fields = [(f.name, f.default) for f in dataclasses.fields(ref)]
+    omitted = OMITTED_FIELDS.get(name, set())
+    ref_fields = [(f.name, f.default) for f in dataclasses.fields(ref)
+                  if f.name not in omitted]
     port_fields = [(f.name, f.default) for f in dataclasses.fields(port)]
     assert port_fields == ref_fields
 

@@ -35,12 +35,18 @@ def flat_variables(variables) -> dict:
 def to_flax_flat(model) -> dict:
     """The port's state_dict -> flat flax variables (the inverse of
     convert.convert_variables), to hand one set of weights to both sides."""
+    return named_to_flax_flat(model.state_dict())
+
+
+def named_to_flax_flat(named) -> dict:
+    """Port tensors by state_dict name (parameters, their gradients or
+    Adam moments, buffers) -> flat flax keys and layouts."""
     leaves = {"weight": "kernel", "bias": "bias",
               "running_mean": "mean", "running_var": "var"}
     flat = {}
-    for name, t in model.state_dict().items():
+    for name, t in named.items():
         *path, leaf = name.split(".")
-        arr = t.detach().numpy()
+        arr = t.detach().cpu().numpy()
         collection = "batch_stats" if leaf.startswith("running_") else "params"
         leaf = leaves[leaf]
         if leaf == "kernel" and arr.ndim == 1:
