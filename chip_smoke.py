@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths (``pointunet_tpu_torch``), serving and
-training, at the full BraTS width and fails (non-zero exit, no result
+Drives the port's paths (``pointunet_tpu_torch``): serving, the
+``segment`` CLI (reference-exact sliding-window path and ``--fast``) and
+training, at the full BraTS width, and fails (non-zero exit, no result
 line) on any fault. Phases:
 
-1. build: compile both CUDA kernels from the sources in this checkout
+1. build: compile the four CUDA kernels from the sources in this checkout
    (one ``nvcc`` each, in parallel), print each ptxas report and the
    card's name and power limit;
 2. kernel: on a 365,000-point cloud drawn by the port's sampler from a
@@ -22,13 +23,37 @@ line) on any fault. Phases:
    of the exact f64 ``index_add_``, within 1e-6 x max |exact| of its
    plain version (f32 summation order), and bit-equal across two
    launches; kernel, plain and ``index_add_`` are timed;
-4. serve: write 3 synthetic BraTS cases (4x240x240x155 f32, ellipsoid
+4. window: the same cloud in its own row order with its level-0 self
+   neighbours, C=8 (the reference's bar): the windowed scatter kernel
+   within 1e-5 max relative error of the exact f64 ``index_add_``, within
+   1e-6 x max |exact| of its plain version, bit-equal across two
+   launches; timed; then one ``windowed_gather`` backward with
+   ``POINTUNET_WINDOWED_SCATTER=1``: exactly 1 launch, the same bar;
+5. serve: write 3 synthetic BraTS cases (4x240x240x155 f32, ellipsoid
    brain) to a temporary inbox and serve them with
    ``pointunet_tpu_torch.cli.serve`` (ROI 192x208x155, 365,000 points,
    bf16). Each must yield a (240, 240, 155) uint8 label volume with
    values in {0, 1, 2, 4}, at most 365,000 labelled voxels, and exactly 6
-   KNN kernel launches; then time each stage with CUDA events;
-5. train: write 4 synthetic BraTS point clouds (~600k labelled points:
+   KNN kernel launches; then time each stage with CUDA events, and again
+   with ``POINTUNET_FASTCONV=pallas``: one request must launch the conv
+   kernel exactly 19 times, and its attention mask must agree with the
+   cuDNN route's on >= 0.999 of the ROI's voxels;
+6. conv: the inputs of the 19 eligible convs of one saliency forward, in
+   bf16 at the serve ROI (1,4,160,208,192) and in f32 on one
+   (1,4,64,160,160) window, through the conv kernel and its plain
+   version: in bf16 at most one bf16 ulp apart on every element (or
+   within the f32 bar where the products cancel below it), in f32
+   within 1e-5 x max |plain| and, with TF32 off, within 2e-5 x max(1,
+   max |F.conv3d|) of ``F.conv3d``; the fused bias bit-equal to the
+   rounded conv plus bias. Kernel (20 calls), plain (3) and ``F.conv3d``
+   (20) are timed;
+7. segment: ``cli.segment`` on one synthetic case with
+   ``POINTUNET_FASTCONV=pallas``: the f32 sliding-window path (12
+   windows) must launch the conv kernel 19 x 12 times and the KNN kernel
+   6 times; then the same path on cuDNN, and ``--fast --roi 192 208
+   155`` (19 and 6). Each writes a (240, 240, 155) uint8 volume with
+   values in {0, 1, 2, 4}; seconds per volume are printed;
+8. train: write 4 synthetic BraTS point clouds (~600k labelled points:
    an all-voxel tumor ball plus background) in the prepared-tree layout,
    run ``cli.run_brats`` ``--mode train --n_epoch 1`` on 3 of them
    (validating on the 4th) and ``--mode test`` (a (155, 240, 240, 4)
@@ -39,12 +64,15 @@ line) on any fault. Phases:
    inputs of the first step are captured and held to the checks of
    phase 3.
 
-Before the last line it prints the card (``nvidia-smi``) and one JSON
-object describing the kernels; the last line is
-``{"ok": true, "device": {...}}``. It imports nothing of JAX.
+Every path is driven with the kernels' launch counts set to 0 just before
+it and read just after. Before the last line it prints the card
+(``nvidia-smi``) and one JSON object describing the four kernels; the
+last line is ``{"ok": true, "device": {...}}``. It imports nothing of
+JAX.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import gzip
 import json
@@ -68,14 +96,19 @@ N_CASES = 3
 LAUNCHES_PER_VOLUME = 6        # self + up search at levels 0, 1, 2
 SCATTERS_PER_STEP = 8          # L0 self x2, L0 pool, L1 self x2, L1 pool,
                                # L2 self x2 (the L2 pool is under MIN_ROWS)
+CONVS_PER_FORWARD = 19         # eligible 3x3x3 convs of a saliency forward
+SEGMENT_WINDOWS = 12           # (64,160,160) windows of a 155x240x240 volume
+WINDOW = (64, 160, 160)        # the f32 path's saliency window (Z, Y, X)
+WINDOW_C = 8                   # channels of the windowed-scatter bar
 RECALL_QUERIES = 65_536
 TRAIN_STEPS = 10
 N_CLOUDS = 4                   # run_brats: 3 to train on, 1 to validate
 CLOUD_POINTS = 600_000         # labelled points of a prepared cloud
-# the card's peaks (NVIDIA H100 SXM data sheet): device memory bytes/s and
-# f32 operations/s outside the tensor cores
+# the card's peaks (NVIDIA H100 SXM data sheet): device memory bytes/s,
+# f32 operations/s outside the tensor cores, bf16 on the tensor cores
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
+BF16_OPS_S = 989e12
 
 
 def log(msg: str) -> None:
@@ -97,13 +130,19 @@ def cuda_ms(fn, repeats: int) -> float:
 
 
 def phase_build() -> str:
-    from pointunet_tpu_torch.ops import cuda_build, knn_cuda, scatter_sorted
+    from pointunet_tpu_torch.ops import (
+        conv_cuda,
+        cuda_build,
+        knn_cuda,
+        scatter_sorted,
+        scatter_window,
+    )
 
-    sources = [knn_cuda.SOURCE, scatter_sorted.SOURCE]
+    modules = (knn_cuda, scatter_sorted, conv_cuda, scatter_window)
     t0 = time.perf_counter()
-    sos = cuda_build.build_all(sources)
-    knn_cuda.load_library()
-    scatter_sorted.load_library()
+    sos = cuda_build.build_all([m.SOURCE for m in modules])
+    for m in modules:
+        m.load_library()
     log(f"[build] {', '.join(so.name for so in sos)} built/loaded in "
         f"{time.perf_counter() - t0:.1f} s")
     for so in sos:
@@ -126,10 +165,51 @@ def phase_build() -> str:
     return card
 
 
-def bound_ms(nbytes: float, ops: float) -> float:
+def bound_ms(nbytes: float, ops: float, rate: float = F32_OPS_S) -> float:
     """The least time the card could take: the larger of the bytes over
-    the memory rate and the f32 operations over the f32 rate, in ms."""
-    return max(nbytes / HBM_BYTES_S, ops / F32_OPS_S) * 1e3
+    the memory rate and the operations over their type's rate, in ms."""
+    return max(nbytes / HBM_BYTES_S, ops / rate) * 1e3
+
+
+def bound_by(nbytes: float, ops: float, rate: float = F32_OPS_S) -> str:
+    return "bytes" if nbytes / HBM_BYTES_S >= ops / rate else "operations"
+
+
+@contextlib.contextmanager
+def _env(name: str, value: str):
+    """``os.environ[name] = value`` within, restored after."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
+
+
+def _kernel_modules() -> dict:
+    from pointunet_tpu_torch.ops import (
+        conv_cuda,
+        knn_cuda,
+        scatter_sorted,
+        scatter_window,
+    )
+
+    return {"knn_cell_window": knn_cuda, "scatter_sorted": scatter_sorted,
+            "conv3d_3x3": conv_cuda, "windowed_scatter": scatter_window}
+
+
+def reset_launches() -> None:
+    """Every kernel wrapper's launch count set to 0."""
+    for m in _kernel_modules().values():
+        m.LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    """{kernel name: launches since the last reset}."""
+    return {name: m.LAUNCHES for name, m in _kernel_modules().items()}
 
 
 def _kernel_cloud(dev, seed=0):
@@ -348,6 +428,100 @@ def phase_scatter(dev, pyr) -> list:
     return cases
 
 
+def phase_window(dev, pyr) -> dict:
+    """Kernel 4 at the reference's bar: the cloud in its own row order,
+    its level-0 self neighbours as support ids, C = 8."""
+    from pointunet_tpu_torch.ops import scatter_window as sw
+    from pointunet_tpu_torch.ops.knn_window import _grid_resolution
+
+    order = pyr.order.long()
+    n = order.numel()
+    xyz = torch.empty_like(pyr.xyz[0])
+    xyz[order] = pyr.xyz[0]
+    idx = torch.empty((n, K), dtype=torch.int32, device=dev)
+    idx[order] = order[pyr.neigh_idx[0].long()].to(torch.int32)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ct = torch.randn((n, K, WINDOW_C), generator=gen, device=dev)
+    exact = torch.zeros((n, WINDOW_C), dtype=torch.float64, device=dev)
+    exact.index_add_(0, idx.reshape(-1).long(),
+                     ct.reshape(-1, WINDOW_C).double())
+    scale = float(exact.abs().max().clamp(min=1e-6))
+
+    r = _grid_resolution(n, 1.8)
+    plan = sw._plan(ct, idx, xyz, xyz, r, sw._reverse_window_rows(n, n, K, r))
+    inv = plan.inv.long()
+    got = sw.windowed_scatter(plan, n)
+    again = sw.windowed_scatter(plan, n)
+    plain = sw.windowed_scatter_plain(plan, n)
+    torch.cuda.synchronize()
+    rel = float((got[inv].double() - exact).abs().max()) / scale
+    plain_err = float((got - plain).abs().max())
+    bitwise = torch.equal(got, again)
+    del again, plain
+    ms = cuda_ms(lambda: sw.windowed_scatter(plan, n), 20)
+    plain_ms = cuda_ms(lambda: sw.windowed_scatter_plain(plan, n), 3)
+    flat_idx, flat_ct = idx.reshape(-1), ct.reshape(-1, WINDOW_C)
+    library_ms = cuda_ms(
+        lambda: torch.zeros((n, WINDOW_C), device=dev).index_add_(
+            0, flat_idx, flat_ct),
+        20,
+    )
+    add_ms = cuda_ms(
+        lambda: sw.windowed_scatter_add(ct, idx, xyz, xyz, n), 5
+    )
+    # bound: the plan's inputs (ct, idx, inv, starts, thresholds) read
+    # once, the sorted gradient written once; one f32 add per ct element
+    nqk, nt = n * K, plan.qw0.shape[0]
+    nbytes = 4 * (nqk * WINDOW_C + nqk + n + 2 * nt * 9 + n * WINDOW_C)
+    ops = nqk * WINDOW_C
+    b_ms, by = bound_ms(nbytes, ops), bound_by(nbytes, ops)
+    log(f"[window] Ns={n} rows={nqk} C={WINDOW_C} r={r} wqk={plan.wqk}: max "
+        f"rel err {rel:.3e} vs exact, max |kernel - plain| "
+        f"{plain_err:.3e}, bit-equal relaunch {bitwise}; kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms by {by}; windowed_scatter_add with its plan "
+        f"{add_ms:.4f} ms")
+    if not rel < 1e-5 or not plain_err <= 1e-6 * scale or not bitwise:
+        raise AssertionError(
+            f"windowed scatter: max rel err {rel:.3e}, max |kernel - plain| "
+            f"{plain_err:.3e} (bound {1e-6 * scale:.3e}), bit-equal "
+            f"relaunch {bitwise}"
+        )
+
+    # its entry point: one gather backward with the kernel switched on
+    table = torch.zeros((n, WINDOW_C), device=dev, requires_grad=True)
+    with _env("POINTUNET_WINDOWED_SCATTER", "1"):
+        reset_launches()
+        sw.windowed_gather(table, idx, xyz, xyz).backward(ct)
+        torch.cuda.synchronize()
+        counts = read_launches()
+    launches = counts["windowed_scatter"]
+    grad_rel = float((table.grad.double() - exact).abs().max()) / scale
+    log(f"[window] windowed_gather backward: {launches} kernel launch, max "
+        f"rel err {grad_rel:.3e} vs exact")
+    if launches != 1 or not grad_rel < 1e-5:
+        raise AssertionError(
+            f"windowed_gather backward: {launches} launches, max rel err "
+            f"{grad_rel:.3e}"
+        )
+    return {
+        "name": "windowed_scatter",
+        "route": "cuda",
+        "source": "pointunet_tpu_torch/csrc/scatter_window.cu",
+        "replaces": "pointunet_tpu/ops/scatter_window.py:123",
+        "launches": launches,
+        "shape": f"L0 self Ns={n} rows={nqk} C={WINDOW_C}",
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b_ms,
+        "bound_by": by,
+        "library_ms": library_ms,
+        "max_abs_err": plain_err,
+        "max_rel_err": max(rel, grad_rel),
+        "windowed_scatter_add_ms": add_ms,
+    }, counts
+
+
 def _step_cases(captured, r0) -> list:
     """The checks of phase 3 on the scatter inputs of one train step."""
     if len(captured) != SCATTERS_PER_STEP:
@@ -368,7 +542,7 @@ def _step_cases(captured, r0) -> list:
     return cases
 
 
-def _scatter_summary(bars, steps, launches, serve_launches) -> dict:
+def _scatter_summary(bars, steps, launches, by_path) -> dict:
     """Kernel 2's entry of the ``kernels`` line: the numbers of the
     largest shape of a train step, every shape under ``shapes``."""
     top = max(steps, key=lambda c: c["rows"] * c["c"])
@@ -379,7 +553,7 @@ def _scatter_summary(bars, steps, launches, serve_launches) -> dict:
         "source": "pointunet_tpu_torch/csrc/scatter_sorted.cu",
         "replaces": "pointunet_tpu/ops/scatter_sorted.py:213",
         "launches": launches,
-        "launches_by_path": {"serve": serve_launches, "train": launches},
+        "launches_by_path": by_path,
         "shape": top["case"],
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],
@@ -393,9 +567,10 @@ def _scatter_summary(bars, steps, launches, serve_launches) -> dict:
     }
 
 
-def _write_cases(inbox: str) -> None:
-    """N_CASES BraTS-layout cases: the bench's ellipsoid brain with normal
-    noise, gzipped at level 1 once and copied (level 9 takes minutes)."""
+def _write_cases(inbox: str, n_cases: int = N_CASES) -> None:
+    """``n_cases`` BraTS-layout cases: the bench's ellipsoid brain with
+    normal noise, gzipped at level 1 once and copied (level 9 takes
+    minutes)."""
     from pointunet_tpu_torch.data import nifti
     from pointunet_tpu_torch.data.loader import BRATS_MODALITIES
 
@@ -417,7 +592,7 @@ def _write_cases(inbox: str) -> None:
         ) as g:
             shutil.copyfileobj(f, g)
         os.remove(path)
-    for i in range(1, N_CASES):
+    for i in range(1, n_cases):
         case = f"BraTS_smoke_{i:03d}"
         os.makedirs(os.path.join(inbox, case))
         for mod in BRATS_MODALITIES:
@@ -427,14 +602,13 @@ def _write_cases(inbox: str) -> None:
             )
 
 
-def phase_serve(dev) -> dict:
+def phase_serve(dev):
     from pointunet_tpu_torch.cli import serve
     from pointunet_tpu_torch.data import nifti
     from pointunet_tpu_torch.data.loader import (
         find_brats_cases,
         load_brats_volume,
     )
-    from pointunet_tpu_torch.ops import knn_cuda, scatter_sorted
 
     with tempfile.TemporaryDirectory() as tmp:
         inbox = os.path.join(tmp, "inbox")
@@ -444,23 +618,24 @@ def phase_serve(dev) -> dict:
         log(f"[serve] wrote {N_CASES} cases in "
             f"{time.perf_counter() - t0:.1f} s")
 
-        knn_cuda.LAUNCHES = 0
-        scatter_sorted.LAUNCHES = 0
+        reset_launches()
         server = serve.main([
             "--inbox", inbox, "--outbox", outbox, "--once",
             "--roi", *map(str, ROI), "--n_point", str(N_POINTS),
             "--device", "cuda",
         ])
-        launches = knn_cuda.LAUNCHES
-        scatters = scatter_sorted.LAUNCHES
-        log(f"[serve] served {server.served} cases, KNN kernel launches "
-            f"{launches}, scatter kernel launches {scatters}")
-        if (server.served != N_CASES or scatters
-                or launches != LAUNCHES_PER_VOLUME * N_CASES):
+        counts = read_launches()
+        launches = counts["knn_cell_window"]
+        log(f"[serve] served {server.served} cases, kernel launches "
+            f"{counts}")
+        if (server.served != N_CASES
+                or launches != LAUNCHES_PER_VOLUME * N_CASES
+                or counts["scatter_sorted"] or counts["windowed_scatter"]
+                or counts["conv3d_3x3"]):
             raise AssertionError(
-                f"expected {N_CASES} cases with {LAUNCHES_PER_VOLUME} "
-                f"launches each, got {server.served} cases and {launches} "
-                f"launches"
+                f"expected {N_CASES} cases with {LAUNCHES_PER_VOLUME} KNN "
+                f"launches each and no other kernel, got {server.served} "
+                f"cases and {counts}"
             )
         latencies = []
         for case_dir in find_brats_cases(inbox):
@@ -484,11 +659,55 @@ def phase_serve(dev) -> dict:
         mods = torch.from_numpy(np.ascontiguousarray(
             load_brats_volume(find_brats_cases(inbox)[0])
         )).to(dev)
-    stages = _stage_split(server.pipes[VOLUME], mods)
+    pipe = server.pipes[VOLUME]
+    stages = _stage_split(pipe, mods)
     log("[serve] stage split (ms, mean of 3): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
-    return {"launches": launches, "scatters": scatters,
-            "latency_s": latencies, "stages_ms": stages}
+
+    # the same request with the saliency net's convs on kernel 3
+    mask_cudnn = pipe._attention_mask(mods)
+    with _env("POINTUNET_FASTCONV", "pallas"):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        reset_launches()
+        with torch.inference_mode():
+            pipe.segment_device(mods, gen)
+        torch.cuda.synchronize()
+        pallas_counts = read_launches()
+        mask_kernel = pipe._attention_mask(mods)
+        stages_pallas = _stage_split(pipe, mods)
+    roi = _roi_slices(pipe, mods)
+    agree = float((mask_kernel[roi] == mask_cudnn[roi]).float().mean())
+    log(f"[serve] with POINTUNET_FASTCONV=pallas: one request's kernel "
+        f"launches {pallas_counts}; attention mask agrees with the cuDNN "
+        f"route's on {agree:.6f} of the ROI's voxels; stage split (ms, "
+        f"mean of 3): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages_pallas.items())
+        + f"; attention {stages_pallas['attention']:.3f} ms with kernel 3 "
+        f"vs {stages['attention']:.3f} ms on cuDNN")
+    if (pallas_counts["conv3d_3x3"] != CONVS_PER_FORWARD
+            or pallas_counts["knn_cell_window"] != LAUNCHES_PER_VOLUME
+            or not agree >= 0.999):
+        raise AssertionError(
+            f"serve with kernel 3: launches {pallas_counts}, mask "
+            f"agreement {agree}"
+        )
+    return {"launches": counts, "latency_s": latencies, "stages_ms": stages,
+            "pallas_launches": pallas_counts, "mask_agreement": agree,
+            "stages_pallas_ms": stages_pallas}, pipe, mods
+
+
+def _roi_slices(pipe, mods):
+    """The (X, Y, Z) slices of the attention stage's ROI window, as
+    ``FusedPointUnet._attention_mask`` places it."""
+    from pointunet_tpu_torch.pipeline.fused import _roi_start
+
+    brain = (mods != 0).any(dim=0)
+    x, y, z = pipe.volume_shape
+    rx, ry, rz = pipe._roi
+    sx = _roi_start(brain.any(dim=2).any(dim=1), x, rx)
+    sy = _roi_start(brain.any(dim=2).any(dim=0), y, ry)
+    sz = _roi_start(brain.any(dim=1).any(dim=0), z, rz)
+    return slice(sx, sx + rx), slice(sy, sy + ry), slice(sz, sz + rz)
 
 
 def _stage_split(pipe, mods) -> dict:
@@ -517,6 +736,208 @@ def _stage_split(pipe, mods) -> dict:
                 for i, name in enumerate(totals):
                     totals[name] += ev[i].elapsed_time(ev[i + 1]) / repeats
     return totals
+
+
+def _capture_convs(model, x) -> list:
+    """(x, w, bias) of every kernel-3 call of one forward of ``model`` with
+    ``POINTUNET_FASTCONV=pallas`` (the calls still run)."""
+    from pointunet_tpu_torch.models import fastconv
+
+    calls, real = [], fastconv.conv3d_3x3
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+
+    fastconv.conv3d_3x3 = record
+    try:
+        with _env("POINTUNET_FASTCONV", "pallas"), torch.inference_mode():
+            model(x)
+    finally:
+        fastconv.conv3d_3x3 = real
+    torch.cuda.synchronize()
+    return calls
+
+
+def _bf16_ulp(a: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |a| (8 significant bits)."""
+    e = torch.floor(torch.log2(a.abs().clamp(min=torch.finfo(torch.float32).tiny)))
+    return torch.exp2(e - 7)
+
+
+def _conv_case(name: str, x, w, b) -> dict:
+    """One captured conv input through the kernel, its plain version and
+    (f32) ``F.conv3d``; the bars of phase 6, times and bound."""
+    import torch.nn.functional as F
+
+    from pointunet_tpu_torch.ops import conv_cuda
+
+    bf16 = x.dtype == torch.bfloat16
+    got = conv_cuda.conv3d_3x3(x, w)
+    plain = conv_cuda.conv3d_3x3_plain(x, w)
+    torch.cuda.synchronize()
+    gap = (got.float() - plain.float()).abs()
+    max_err = float(gap.max())
+    scale = float(plain.float().abs().max())
+    checks = {}
+    if bf16:
+        # one bf16 ulp, but never below the f32 bar: where the 27 x Cin
+        # products cancel, the two f32 sums (in different orders) differ
+        # by more than the ulp of the small result
+        ulp = _bf16_ulp(torch.maximum(got.float().abs(), plain.float().abs()))
+        over = gap > ulp
+        n_over = int(over.sum())
+        over_max = float(plain.float().abs()[over].max()) if n_over else 0.0
+        checks["within one bf16 ulp or 1e-5 x max|plain|"] = bool(
+            (gap <= ulp.clamp(min=1e-5 * scale)).all())
+        log(f"[conv] {name}: {n_over} of {gap.numel()} elements more than "
+            f"one bf16 ulp apart (|plain| at most {over_max:.3e} there)")
+        del ulp, over
+    else:
+        checks["within 1e-5 x max|plain|"] = max_err <= 1e-5 * scale
+        lib = F.conv3d(x, w, padding=1)
+        lib_err = float((got - lib).abs().max())
+        lib_scale = max(1.0, float(lib.abs().max()))
+        checks["within 2e-5 x max(1, max|F.conv3d|)"] = (
+            lib_err <= 2e-5 * lib_scale)
+        del lib
+    del gap, plain
+    if b is not None:
+        fused = conv_cuda.conv3d_3x3(x, w, b)
+        checks["fused bias bit-equal"] = torch.equal(
+            fused, got + b.view(1, -1, 1, 1, 1))
+        del fused
+    del got
+    ms = cuda_ms(lambda: conv_cuda.conv3d_3x3(x, w, b), 20)
+    plain_ms = cuda_ms(lambda: conv_cuda.conv3d_3x3_plain(x, w, b), 3)
+    library_ms = cuda_ms(lambda: F.conv3d(x, w, b, padding=1), 20)
+    bsz, cin, d, h, wd = x.shape
+    cout = w.shape[0]
+    es = x.element_size()
+    nbytes = es * (x.numel() + w.numel() + bsz * cout * d * h * wd
+                   + (0 if b is None else b.numel()))
+    ops = 2 * 27 * cin * cout * bsz * d * h * wd
+    rate = BF16_OPS_S if bf16 else F32_OPS_S
+    b_ms, by = bound_ms(nbytes, ops, rate), bound_by(nbytes, ops, rate)
+    log(f"[conv] {name} {str(x.dtype)[6:]} {cin}->{cout} at {(d, h, wd)}: "
+        f"max |kernel - plain| {max_err:.3e} (max |plain| {scale:.3e}), "
+        + ", ".join(f"{k} {v}" for k, v in checks.items())
+        + f"; kernel {ms:.4f} ms ({ops / ms / 1e9:.2f} TFLOP/s), plain "
+        f"{plain_ms:.4f} ms, F.conv3d {library_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms by {by}")
+    if not all(checks.values()):
+        raise AssertionError(f"conv kernel {name}: {checks}")
+    return {"case": name, "dtype": str(x.dtype)[6:], "cin": cin,
+            "cout": cout, "volume": [d, h, wd], "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": b_ms, "bound_by": by, "max_abs_err": max_err,
+            "ops": ops, "bytes": nbytes}
+
+
+def phase_conv(dev, serve_pipe, mods) -> dict:
+    """Kernel 3 on the inputs of the 19 eligible convs of one saliency
+    forward: bf16 at the serve ROI, f32 on one sliding window."""
+    from pointunet_tpu_torch.cli import segment
+
+    # the serve request's ROI window, as its attention stage feeds the net
+    roi = _roi_slices(serve_pipe, mods)
+    vol = mods[:, roi[0], roi[1], roi[2]].permute(0, 3, 2, 1)[None]
+    zp, yp, xp = (-(-n // 16) * 16 for n in vol.shape[2:])
+    vol = torch.nn.functional.pad(
+        vol, (0, xp - vol.shape[4], 0, yp - vol.shape[3], 0,
+              zp - vol.shape[2]))
+    f32 = segment.build_pipeline(argparse.Namespace(
+        dataset="brats", fast=False, sa_stride=None, n_point=N_POINTS,
+        saliency_checkpoint=None, pointseg_checkpoint=None,
+    )).saliency_model.to(dev).eval()
+    # a window at the middle of the (Z, Y, X) volume
+    zc, yc, xc = ((n - w) // 2 for n, w in zip(VOLUME[::-1], WINDOW))
+    window = mods.permute(0, 3, 2, 1)[None, :, zc:zc + WINDOW[0],
+                                      yc:yc + WINDOW[1], xc:xc + WINDOW[2]]
+    out = {}
+    for tag, model, x in (("bf16 ROI", serve_pipe.saliency_model, vol),
+                          ("f32 window", f32, window.contiguous())):
+        calls = _capture_convs(model, x)
+        log(f"[conv] {tag}: input {tuple(x.shape)}, {len(calls)} eligible "
+            f"convs")
+        if len(calls) != CONVS_PER_FORWARD:
+            raise AssertionError(f"{tag}: {len(calls)} eligible convs")
+        cases = []
+        while calls:
+            xc, wc, bc = calls.pop(0)
+            with torch.inference_mode():
+                cases.append(_conv_case(f"{tag} #{len(cases)}", xc, wc, bc))
+            del xc, wc, bc
+            torch.cuda.empty_cache()
+        sums = {k: sum(c[k] for c in cases)
+                for k in ("ms", "plain_ms", "library_ms", "bound_ms", "ops",
+                          "bytes")}
+        rate = BF16_OPS_S if tag.startswith("bf16") else F32_OPS_S
+        sums["bound_by"] = bound_by(sums["bytes"], sums["ops"], rate)
+        log(f"[conv] {tag}, the 19 convs of one forward: kernel "
+            f"{sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f} ms, "
+            f"F.conv3d {sums['library_ms']:.4f} ms, bound "
+            f"{sums['bound_ms']:.4f} ms by {sums['bound_by']} "
+            f"({sums['ops'] / 1e12:.3f} TFLOP)")
+        out[tag] = {"sum": sums, "shapes": cases}
+    del f32
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_labels(path: str) -> np.ndarray:
+    from pointunet_tpu_torch.data import nifti
+
+    lab = nifti.load(path).data
+    vals = set(np.unique(lab).tolist())
+    if lab.shape != VOLUME or lab.dtype != np.uint8 or not vals <= {0, 1, 2, 4}:
+        raise AssertionError(
+            f"bad labels {path}: {lab.shape} {lab.dtype} {sorted(vals)}")
+    return lab
+
+
+def phase_segment(dev) -> dict:
+    """``cli.segment`` on one synthetic case: the f32 sliding-window path
+    with kernel 3, the same on cuDNN, and ``--fast`` with kernel 3."""
+    from pointunet_tpu_torch.cli import segment
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        inbox = os.path.join(tmp, "inbox")
+        _write_cases(inbox, 1)
+        for tag, route, flags, convs in (
+            ("segment", "pallas", [], CONVS_PER_FORWARD * SEGMENT_WINDOWS),
+            ("segment_cudnn", "", [], 0),
+            ("segment_fast", "pallas", ["--fast", "--roi", *map(str, ROI)],
+             CONVS_PER_FORWARD),
+        ):
+            out = os.path.join(tmp, tag)
+            with _env("POINTUNET_FASTCONV", route):
+                reset_launches()
+                seconds = segment.main([
+                    "--data_3D_path", inbox, "--outSegment_path", out,
+                    "--n_point", str(N_POINTS), "--device", "cuda", *flags,
+                ])
+                torch.cuda.synchronize()
+                counts = read_launches()
+            (case, secs), = seconds.items()
+            lab = _check_labels(os.path.join(out, f"{case}.nii.gz"))
+            n_lab = int((lab > 0).sum())
+            log(f"[segment] {tag} (POINTUNET_FASTCONV={route or 'unset'}"
+                f"{' ' + ' '.join(flags) if flags else ''}): {secs:.3f} s a "
+                f"volume, labels {lab.shape} {lab.dtype} values "
+                f"{sorted(set(np.unique(lab).tolist()))}, labelled voxels "
+                f"{n_lab}, kernel launches {counts}")
+            if (counts["conv3d_3x3"] != convs
+                    or counts["knn_cell_window"] != LAUNCHES_PER_VOLUME
+                    or counts["scatter_sorted"] or counts["windowed_scatter"]
+                    or not 0 < n_lab <= N_POINTS):
+                raise AssertionError(f"{tag}: launches {counts}, {n_lab} "
+                                     f"labelled voxels")
+            runs[tag] = {"seconds": secs, "launches": counts,
+                         "labelled_voxels": n_lab}
+    torch.cuda.empty_cache()
+    return runs
 
 
 def _write_clouds(root: str, dev) -> list:
@@ -554,7 +975,6 @@ def phase_train(dev) -> dict:
     )
     from pointunet_tpu_torch.core.config import brats_pointseg_config
     from pointunet_tpu_torch.models.randlanet import search_grid
-    from pointunet_tpu_torch.ops import knn_cuda, scatter_sorted
     from pointunet_tpu_torch.train.pointseg import PointSegTrainer
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -573,22 +993,21 @@ def phase_train(dev) -> dict:
             "--logdir", os.path.join(tmp, "logs"),
             "--n_point", str(N_POINTS), "--device", "cuda",
         ]
-        knn_cuda.LAUNCHES = 0
-        scatter_sorted.LAUNCHES = 0
+        reset_launches()
         t0 = time.perf_counter()
         state = run_brats.main(["--mode", "train", "--n_epoch", "1"] + common)
         torch.cuda.synchronize()
-        knn, scatters = knn_cuda.LAUNCHES, scatter_sorted.LAUNCHES
+        counts = read_launches()
         steps = len(names) - 1
         log(f"[train] run_brats --mode train: {state.step} steps + 1 "
-            f"validation cloud in {time.perf_counter() - t0:.1f} s; KNN "
-            f"kernel launches {knn}, scatter kernel launches {scatters}")
+            f"validation cloud in {time.perf_counter() - t0:.1f} s; kernel "
+            f"launches {counts}")
         if (state.step != steps
-                or knn != LAUNCHES_PER_VOLUME * (steps + 1)
-                or scatters != SCATTERS_PER_STEP * steps):
+                or counts["knn_cell_window"] != LAUNCHES_PER_VOLUME * (steps + 1)
+                or counts["scatter_sorted"] != SCATTERS_PER_STEP * steps
+                or counts["conv3d_3x3"] or counts["windowed_scatter"]):
             raise AssertionError(
-                f"run_brats train: {state.step} steps, {knn} KNN and "
-                f"{scatters} scatter launches"
+                f"run_brats train: {state.step} steps, launches {counts}"
             )
         del state
         results = os.path.join(tmp, "npy")
@@ -614,11 +1033,12 @@ def phase_train(dev) -> dict:
     xyz, feats, labels = synthetic_cloud(dev, N_POINTS, seed=5)
     losses, splits = [], []
     for i in range(TRAIN_STEPS):
-        knn_cuda.LAUNCHES = 0
-        scatter_sorted.LAUNCHES = 0
+        reset_launches()
         with _capture() if i == 0 else contextlib.nullcontext() as captured:
             m, split = timed_step(trainer, state, xyz, feats, labels)
-        per_step = (knn_cuda.LAUNCHES, scatter_sorted.LAUNCHES)
+        step_counts = read_launches()
+        per_step = (step_counts["knn_cell_window"],
+                    step_counts["scatter_sorted"])
         losses.append(float(m["loss"]))
         splits.append(split)
         log(f"[train] step {i}: loss {losses[-1]:.6f}, "
@@ -641,9 +1061,34 @@ def phase_train(dev) -> dict:
     if (not all(np.isfinite(losses))
             or not np.mean(losses[-3:]) < losses[0]):
         raise AssertionError(f"losses do not descend: {losses}")
-    return {"knn_launches": knn, "scatter_launches": scatters,
-            "losses": losses, "split_ms": mean, "peak_gb": peak,
-            "step_cases": step_cases}
+    return {"launches": counts, "losses": losses, "split_ms": mean,
+            "peak_gb": peak, "step_cases": step_cases}
+
+
+def _conv_summary(conv, launches, by_path) -> dict:
+    """Kernel 3's entry of the ``kernels`` line: the sums over the 19
+    convs of one bf16 ROI forward (the serve path's), the f32 window's
+    sums and every shape beside them."""
+    roi, win = conv["bf16 ROI"], conv["f32 window"]
+    shapes = roi["shapes"] + win["shapes"]
+    return {
+        "name": "conv3d_3x3",
+        "route": "cuda",
+        "source": "pointunet_tpu_torch/csrc/conv3x3.cu",
+        "replaces": "pointunet_tpu/ops/conv_pallas.py:90",
+        "launches": launches,
+        "launches_by_path": by_path,
+        "shape": "sum of the 19 convs of one bf16 ROI forward "
+                 "(1,4,160,208,192)",
+        "ms": roi["sum"]["ms"],
+        "plain_ms": roi["sum"]["plain_ms"],
+        "bound_ms": roi["sum"]["bound_ms"],
+        "bound_by": roi["sum"]["bound_by"],
+        "library_ms": roi["sum"]["library_ms"],
+        "max_abs_err": max(c["max_abs_err"] for c in shapes),
+        "f32_window": win["sum"],
+        "shapes": shapes,
+    }
 
 
 def main() -> int:
@@ -651,8 +1096,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this run needs the card",
               file=sys.stderr)
         return 1
-    # the f32 comparisons below run no matmul or convolution; TF32 is off
-    # all the same so that nothing in them can round to TF32
+    # f32 comparisons hold full f32: cuDNN would run f32 convs in TF32
+    # (F.conv3d is the f32 bar of phase 6) and matmuls could
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -661,23 +1106,48 @@ def main() -> int:
     card = phase_build()
     kernel, pyr = phase_kernel(dev)
     bars = phase_scatter(dev, pyr)
+    window, gather_counts = phase_window(dev, pyr)
     del pyr
     torch.cuda.empty_cache()
-    serve = phase_serve(dev)
+    serve, pipe, mods = phase_serve(dev)
+    conv = phase_conv(dev, pipe, mods)
+    del pipe, mods
     torch.cuda.empty_cache()
+    segment = phase_segment(dev)
     train = phase_train(dev)
-    # launches: the train path's run (this slice's path); each path's
-    # count beside it
-    kernel["launches"] = train["knn_launches"]
-    kernel["launches_by_path"] = {"serve": serve.pop("launches"),
-                                  "train": train["knn_launches"]}
-    scatter = _scatter_summary(bars, train.pop("step_cases"),
-                               train["scatter_launches"],
-                               serve.pop("scatters"))
+
+    # each path's launches, counted from 0 over its run; "launches" is
+    # the count on the path that carries the kernel in this run: the
+    # segment CLI's sliding-window path for kernels 1 and 3, training for
+    # kernel 2, windowed_gather's backward for kernel 4
+    paths = {
+        "serve": serve["launches"],
+        "serve_pallas_request": serve["pallas_launches"],
+        "segment": segment["segment"]["launches"],
+        "segment_cudnn": segment["segment_cudnn"]["launches"],
+        "segment_fast": segment["segment_fast"]["launches"],
+        "train": train.pop("launches"),
+        "windowed_gather": gather_counts,
+    }
+
+    def by_path(name):
+        return {path: counts[name] for path, counts in paths.items()}
+
+    kernel["launches"] = paths["segment"]["knn_cell_window"]
+    kernel["launches_by_path"] = by_path("knn_cell_window")
     kernel["serve"] = serve
+    kernel["segment"] = segment
+    scatter = _scatter_summary(
+        bars, train.pop("step_cases"), paths["train"]["scatter_sorted"],
+        by_path("scatter_sorted"),
+    )
     scatter["train"] = train
+    conv_entry = _conv_summary(conv, paths["segment"]["conv3d_3x3"],
+                               by_path("conv3d_3x3"))
+    window["launches_by_path"] = by_path("windowed_scatter")
     print(card, flush=True)
-    print(json.dumps({"kernels": [kernel, scatter]}), flush=True)
+    print(json.dumps({"kernels": [kernel, scatter, conv_entry, window]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,6 @@ import time
 import traceback
 
 import numpy as np
-import torch
 
 from ..data import nifti
 from ..data.loader import find_brats_cases, load_brats_volume
@@ -114,8 +113,8 @@ def main(argv=None) -> Server:
     parser.add_argument("--once", action="store_true",
                         help="drain the inbox once and exit")
     parser.add_argument("--n_point", type=int, default=365000)
-    parser.add_argument("--device", type=str,
-                        default="cuda" if torch.cuda.is_available() else "cpu")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (default) or cpu")
     args = parser.parse_args(argv)
 
     server = Server(args)

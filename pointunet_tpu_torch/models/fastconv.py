@@ -10,16 +10,26 @@
 For a stride-2 3x3x3 conv on an even input that is (0, 1), where torch's
 ``padding=1`` would pad (1, 1) and shift every output voxel. Symmetric
 pads go to the convolution itself; asymmetric ones are applied with
-``F.pad`` first. The reference's depth-batched 2-D decomposition and its
-optimisation barrier are TPU workarounds and are not ported.
+``F.pad`` first.
+
+With ``POINTUNET_FASTCONV=pallas`` in the environment (read at call time,
+as the reference does), every stride-1, dilation-1 3x3x3 conv runs kernel
+3 (``ops/conv_cuda.py:conv3d_3x3``) instead of ``F.conv3d``: the route of
+the reference's Pallas conv, without its TPU backend test. The
+reference's other modes (``all``, ``fold1``, ``k9``: its depth-batched
+2-D decomposition) and its optimisation barrier are TPU workarounds and
+are not ported; they, like any other value, leave the route off.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.conv_cuda import conv3d_3x3
 
 
 def _triple(v) -> Tuple[int, int, int]:
@@ -34,6 +44,14 @@ def same_padding(size, kernel, stride, dilation):
         total = max((out - 1) * s + (k - 1) * d + 1 - n, 0)
         pads.append((total // 2, total - total // 2))
     return pads
+
+
+def _decomposition_mode() -> str:
+    """``"pallas"`` when ``POINTUNET_FASTCONV`` asks for the fused 3x3x3
+    conv route, else ``"off"``."""
+    if os.environ.get("POINTUNET_FASTCONV", "") == "pallas":
+        return "pallas"
+    return "off"
 
 
 def _nearest_upsample(x: torch.Tensor, scale: int) -> torch.Tensor:
@@ -75,6 +93,13 @@ class Conv(nn.Module):
         b = None if self.bias is None else self.bias.to(dt)
         if self.upsample > 1:
             x = _nearest_upsample(x, self.upsample)
+        if (
+            _decomposition_mode() == "pallas"
+            and self.kernel_size == (3, 3, 3)
+            and self.strides == (1, 1, 1)
+            and self.dilation == (1, 1, 1)
+        ):
+            return conv3d_3x3(x.contiguous(), w.contiguous(), b)
         pads = same_padding(
             x.shape[2:], self.kernel_size, self.strides, self.dilation
         )

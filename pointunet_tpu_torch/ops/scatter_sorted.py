@@ -91,6 +91,26 @@ def _windows(
     return start, torch.maximum(end, start)
 
 
+def window_passes(starts: torch.Tensor, length: torch.Tensor):
+    """The flat rows of the windows ``[starts, starts + length)``, in
+    window order, in passes of whole windows of about ``PLAIN_ROWS``
+    rows: yields (window id, flat row) per row, int64."""
+    dev = starts.device
+    cum = torch.cumsum(length, 0)
+    w0 = 0
+    while w0 < length.numel():
+        base = int(cum[w0 - 1]) if w0 else 0
+        w1 = int(torch.searchsorted(cum, base + PLAIN_ROWS, right=True))
+        w1 = max(w1, w0 + 1)
+        lens = length[w0:w1]
+        win = torch.repeat_interleave(torch.arange(w0, w1, device=dev), lens)
+        pos = torch.arange(win.numel(), device=dev) - (
+            torch.cumsum(lens, 0) - lens
+        ).repeat_interleave(lens)
+        yield win, starts[win] + pos
+        w0 = w1
+
+
 def scatter_sorted_plain(
     ct: torch.Tensor,            # (Nq * K, C) f32 rows, cell-sorted queries
     idx: torch.Tensor,           # (Nq * K,) int32 sorted-support rows
@@ -106,28 +126,11 @@ def scatter_sorted_plain(
     ns, c = s_ids.shape[0], ct.shape[1]
     out = torch.zeros((ns, c), dtype=torch.float32, device=ct.device)
     start, end = _windows(s_ids, q_cell_start, k, r)
-    length = (end - start).reshape(-1)                  # (nt * 9,)
-    starts = start.reshape(-1)
-    tile_of = torch.arange(length.numel(), device=ct.device) // 9
-    cum = torch.cumsum(length, 0)
-    w0 = 0
-    while w0 < length.numel():
-        # a pass over whole windows, about PLAIN_ROWS scanned rows
-        base = int(cum[w0 - 1]) if w0 else 0
-        w1 = int(torch.searchsorted(cum, base + PLAIN_ROWS, right=True))
-        w1 = max(w1, w0 + 1)
-        lens = length[w0:w1]
-        win = torch.repeat_interleave(torch.arange(w0, w1, device=ct.device),
-                                      lens)
-        pos = torch.arange(win.numel(), device=ct.device) - (
-            torch.cumsum(lens, 0) - lens
-        ).repeat_interleave(lens)
-        p = starts[win] + pos
+    for win, p in window_passes(start.reshape(-1), (end - start).reshape(-1)):
         j = idx[p].long()
-        lo = tile_of[win] * S_TILE
+        lo = win // 9 * S_TILE                          # the window's tile
         keep = (j >= lo) & (j < lo + S_TILE)
         out.index_add_(0, j[keep], ct[p[keep]].float())
-        w0 = w1
     return out
 
 

@@ -67,7 +67,7 @@ class FusedPointUnet:
         att_downscale: int = 1,         # run saliency at 1/s resolution
         mask_dilate: int = 0,           # dilate the salient mask (voxels)
         mask_band: int = 0,             # boundary-band width (voxels)
-        device="cpu",
+        device="cuda",
     ):
         """Options as in the reference: ``roi_shape`` crops the attention
         stage to a fixed window around the brain; ``att_downscale`` s runs
@@ -75,7 +75,8 @@ class FusedPointUnet:
         probability map back; ``mask_dilate`` grows the thresholded mask;
         ``mask_band`` adds a second, lower sampling tier (the core dilated
         by ``mask_band`` minus the core, plus voxels above threshold / 4).
-        The models are moved to ``device`` and set to eval mode."""
+        The models are moved to ``device`` (the card unless the caller
+        asks for the CPU) and set to eval mode."""
         self.device = torch.device(device)
         self.saliency_model = saliency_model.to(self.device).eval()
         self.pointseg_model = pointseg_model.to(self.device).eval()

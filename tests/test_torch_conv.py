@@ -1,0 +1,225 @@
+"""Kernel 3's plain version (pointunet_tpu_torch/ops/conv_cuda.py) against
+the reference's Pallas conv in interpret mode, and the port's Conv route
+under POINTUNET_FASTCONV=pallas against its F.conv3d route and against the
+JAX saliency net.
+
+Tolerances:
+
+* plain vs ``conv3d_3x3_pallas`` (f32): rtol = atol = 2e-5, the
+  reference's own bar against XLA's conv (tests/test_conv_pallas.py);
+  both sum 27 f32 tap products, in another order;
+* bf16: the plain version rounds its f32 sum once, so it lies within one
+  bf16 ulp of the f32 result (on the same bf16-representable inputs)
+  rounded to bf16;
+* the Conv route vs ``F.conv3d`` (f32): 1e-5 absolute and relative, sum
+  order only;
+* ``SaliencyUNet`` with the route on vs the JAX model at its CPU default:
+  atol 3e-4, rtol 1e-4, the bar of tests/test_torch_saliency.py.
+
+The CUDA kernel cannot run here; its plain version computes the same
+function, and chip_smoke.py holds the kernel to it on the card.
+"""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pointunet_tpu.core.config import brats_saliency_config as jax_cfg
+from pointunet_tpu.models.saliency_unet import init_saliency_unet as jax_init
+from pointunet_tpu.ops import conv_pallas
+from pointunet_tpu_torch.convert import convert_saliency
+from pointunet_tpu_torch.core.config import brats_saliency_config
+from pointunet_tpu_torch.models import fastconv
+from pointunet_tpu_torch.models.fastconv import Conv
+from pointunet_tpu_torch.models.saliency_unet import SaliencyUNet
+from pointunet_tpu_torch.ops import conv_cuda
+from torch_parity import flat_variables
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def interpret(monkeypatch):
+    """The reference's Pallas conv in interpret mode, re-jitted so that
+    the patched ``pallas_call`` is traced (tests/test_conv_pallas.py)."""
+    monkeypatch.setattr(
+        conv_pallas.pl, "pallas_call",
+        functools.partial(conv_pallas.pl.pallas_call, interpret=True),
+    )
+    monkeypatch.setattr(
+        conv_pallas, "conv3d_3x3_pallas",
+        jax.jit(conv_pallas.conv3d_3x3_pallas.__wrapped__,
+                static_argnames=("bz", "by")),
+    )
+
+
+def _inputs(rng, shape, cin, cout, batch=None):
+    lead = () if batch is None else (batch,)
+    x = rng.standard_normal(lead + shape + (cin,)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, 3, cin, cout)) * 0.1).astype(np.float32)
+    return x, w
+
+
+def _to_port(x, w):
+    """channels-last (.., Z, Y, X, Cin), DHWIO -> (B, Cin, D, H, W),
+    (Cout, Cin, 3, 3, 3) tensors."""
+    xt = torch.from_numpy(x if x.ndim == 5 else x[None])
+    return (xt.permute(0, 4, 1, 2, 3).contiguous(),
+            torch.from_numpy(w.transpose(4, 3, 0, 1, 2).copy()))
+
+
+def _from_port(y, batched):
+    y = y.permute(0, 2, 3, 4, 1).float().numpy()
+    return y if batched else y[0]
+
+
+@pytest.mark.parametrize("shape,cin,cout", [
+    ((8, 16, 24), 8, 16),
+    ((7, 13, 24), 8, 4),
+    ((5, 9, 16), 16, 8),
+])
+def test_plain_matches_pallas_conv(interpret, shape, cin, cout):
+    x, w = _inputs(np.random.default_rng(0), shape, cin, cout)
+    want = conv_pallas.conv3d_3x3_pallas(jnp.asarray(x), jnp.asarray(w),
+                                         bz=4, by=8)
+    got = conv_cuda.conv3d_3x3(*_to_port(x, w))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(_from_port(got, False), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_plain_matches_pallas_conv_batched(interpret):
+    x, w = _inputs(np.random.default_rng(1), (8, 8, 16), 8, 8, batch=2)
+    want = conv_pallas.conv3d_3x3_pallas_batched(jnp.asarray(x),
+                                                 jnp.asarray(w))
+    got = conv_cuda.conv3d_3x3(*_to_port(x, w))
+    assert got.shape == (2, 8, 8, 8, 16)
+    np.testing.assert_allclose(_from_port(got, True), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+
+
+def _bf16_ulp(a: np.ndarray) -> np.ndarray:
+    """The spacing of bf16 values at |a| (8 significant bits)."""
+    e = np.floor(np.log2(np.maximum(np.abs(a), np.finfo(np.float32).tiny)))
+    return np.exp2(e - 7)
+
+
+def test_plain_bf16_within_one_ulp_of_rounded_f32(interpret):
+    x, w = _inputs(np.random.default_rng(2), (6, 10, 16), 16, 8)
+    xb, wb = (torch.from_numpy(a).bfloat16() for a in (x, w))
+    # the f32 reference on the same bf16-representable inputs, rounded
+    want = np.array(conv_pallas.conv3d_3x3_pallas(
+        jnp.asarray(xb.float().numpy()), jnp.asarray(wb.float().numpy()),
+        bz=4, by=8,
+    ))
+    want_b = torch.from_numpy(want).bfloat16().float().numpy()
+    xt, wt = _to_port(xb.float().numpy(), wb.float().numpy())
+    got = conv_cuda.conv3d_3x3(xt.bfloat16(), wt.bfloat16())
+    assert got.dtype == torch.bfloat16
+    got = _from_port(got, False)
+    gap = np.abs(got - want_b)
+    assert (gap <= _bf16_ulp(np.maximum(np.abs(got), np.abs(want_b)))).all()
+
+
+@pytest.mark.parametrize("case", ["bias", "upsample", "head", "no_bias"])
+def test_conv_route_matches_fconv(monkeypatch, case):
+    cin, cout, up, bias = {
+        "bias": (8, 16, 1, True), "upsample": (8, 16, 2, True),
+        "head": (16, 2, 1, True), "no_bias": (4, 8, 1, False),
+    }[case]
+    rng = np.random.default_rng(3)
+    conv = Conv(cin, cout, 3, upsample=up, use_bias=bias)
+    with torch.no_grad():
+        conv.weight.copy_(torch.from_numpy(
+            rng.standard_normal(conv.weight.shape).astype(np.float32) * 0.1))
+        if bias:
+            conv.bias.copy_(torch.from_numpy(
+                rng.standard_normal(cout).astype(np.float32)))
+    x = torch.from_numpy(
+        rng.standard_normal((1, cin, 5, 6, 7)).astype(np.float32))
+    calls = []
+    plain = conv_cuda.conv3d_3x3_plain
+    monkeypatch.setattr(conv_cuda, "conv3d_3x3_plain",
+                        lambda *a: calls.append(a) or plain(*a))
+    with torch.no_grad():
+        want = conv(x)
+        assert calls == []
+        monkeypatch.setenv("POINTUNET_FASTCONV", "pallas")
+        got = conv(x)
+    assert len(calls) == 1
+    assert got.shape == want.shape == (1, cout, 5 * up, 6 * up, 7 * up)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_route_only_for_eligible_convs(monkeypatch):
+    monkeypatch.setenv("POINTUNET_FASTCONV", "pallas")
+    calls = []
+    monkeypatch.setattr(fastconv, "conv3d_3x3",
+                        lambda *a: calls.append(a) or a[0])
+    x = torch.zeros(1, 4, 6, 6, 6)
+    with torch.no_grad():
+        for conv in (Conv(4, 4, 3, strides=2), Conv(4, 4, 3, kernel_dilation=3),
+                     Conv(4, 4, 1), Conv(4, 4, (1, 9, 9))):
+            conv(x)
+        assert calls == []
+        Conv(4, 4, 3)(x)
+    assert len(calls) == 1
+
+
+@pytest.mark.parametrize("value,mode", [
+    ("pallas", "pallas"), ("", "off"), ("off", "off"), ("all", "off"),
+    ("1", "off"), ("fold1", "off"), ("k9", "off"),
+])
+def test_decomposition_mode(monkeypatch, value, mode):
+    """Only the fused 3x3x3 route is ported: the reference's depth
+    decompositions (all, fold1, k9) are TPU workarounds and map to off."""
+    monkeypatch.setenv("POINTUNET_FASTCONV", value)
+    assert fastconv._decomposition_mode() == mode
+
+
+def test_wrapper_plain_on_cpu_and_never_falls_back_elsewhere():
+    x = torch.zeros(1, 2, 3, 4, 5)
+    w = torch.zeros(3, 2, 3, 3, 3)
+    before = conv_cuda.LAUNCHES
+    assert conv_cuda.conv3d_3x3(x, w).shape == (1, 3, 3, 4, 5)
+    assert conv_cuda.LAUNCHES == before
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        conv_cuda.conv3d_3x3(x.to("meta"), w.to("meta"))
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        conv_cuda.conv3d_3x3(x.half(), w.half())
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        conv_cuda.conv3d_3x3(x, w.bfloat16())
+    with pytest.raises(ValueError, match="Cout, Cin, 3, 3, 3"):
+        conv_cuda.conv3d_3x3(x, w[:, :, :1])
+    assert conv_cuda.LAUNCHES == before
+
+
+def test_saliency_unet_with_route_matches_reference(monkeypatch):
+    model, variables = jax_init(jax.random.PRNGKey(0), jax_cfg(sa_gate_stride=1))
+    x = np.random.default_rng(4).standard_normal(
+        (1, 16, 32, 32, 4)).astype(np.float32)
+    want = np.asarray(
+        jax.jit(lambda v: model.apply(variables, v, train=False))(
+            jnp.asarray(x))
+    )
+    cfg = brats_saliency_config(sa_gate_stride=1)
+    port = SaliencyUNet(cfg)
+    port.load_state_dict(convert_saliency(flat_variables(variables), cfg))
+    calls = []
+    real = fastconv.conv3d_3x3
+    monkeypatch.setattr(fastconv, "conv3d_3x3",
+                        lambda *a: calls.append(a) or real(*a))
+    # the route is set for the port's forward only: the reference with the
+    # variable set would take its depth decomposition on the CPU
+    monkeypatch.setenv("POINTUNET_FASTCONV", "pallas")
+    with torch.no_grad():
+        got = port.eval()(torch.from_numpy(x).permute(0, 4, 1, 2, 3))
+    monkeypatch.delenv("POINTUNET_FASTCONV")
+    assert len(calls) == 19          # the net's eligible convs
+    np.testing.assert_allclose(
+        got.permute(0, 2, 3, 4, 1).numpy(), want, atol=3e-4, rtol=1e-4
+    )

@@ -96,7 +96,7 @@ def pipes(request, models):
                 **CASES[request.param])
     return (
         JaxFused(*models["jax"], **opts),
-        FusedPointUnet(*models["port"], **opts),
+        FusedPointUnet(*models["port"], device="cpu", **opts),
     )
 
 
@@ -139,7 +139,7 @@ def mixed(models, mods):
     opts = dict(threshold=THRESHOLD, volume_shape=VOLUME, roi_shape=ROI)
     return (
         JaxFused(smodel, svars, pmodel, pvars, scfg_j, pcfg_j, **opts),
-        FusedPointUnet(sal, pseg, scfg, pcfg, **opts),
+        FusedPointUnet(sal, pseg, scfg, pcfg, device="cpu", **opts),
     )
 
 
@@ -304,7 +304,7 @@ def test_sampler_graded_tiers():
 def test_segment_volume(models, mods):
     pipe = FusedPointUnet(
         *models["port"], threshold=THRESHOLD, volume_shape=VOLUME,
-        roi_shape=ROI,
+        roi_shape=ROI, device="cpu",
     )
     labels = pipe.segment_volume(mods, seed=1)
     assert labels.shape == VOLUME
@@ -315,6 +315,7 @@ def test_segment_volume(models, mods):
 
 def test_fused_rejects_conflicting_modes(models):
     with pytest.raises(ValueError, match="mutually exclusive"):
-        FusedPointUnet(*models["port"], mask_band=2, mask_dilate=1)
+        FusedPointUnet(*models["port"], mask_band=2, mask_dilate=1,
+                       device="cpu")
     with pytest.raises(ValueError, match="att_downscale"):
-        FusedPointUnet(*models["port"], att_downscale=0)
+        FusedPointUnet(*models["port"], att_downscale=0, device="cpu")

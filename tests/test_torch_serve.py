@@ -40,19 +40,43 @@ def test_serve_once_on_cpu(tmp_path):
     assert serve.main(argv).served == 0
 
 
+def test_serve_without_device_needs_the_card(tmp_path, monkeypatch):
+    """``--device`` defaults to cuda: on a host without a card the service
+    fails on every case and writes no labels, instead of quietly serving
+    on the CPU."""
+    from pointunet_tpu_torch.cli import serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    inbox, outbox = tmp_path / "in", tmp_path / "out"
+    make_brats_case(str(inbox), "case_a")
+    server = serve.main(["--inbox", str(inbox), "--outbox", str(outbox),
+                         "--once", "--n_point", "4096"])
+    assert server.args.device == "cuda"
+    assert server.served == 0 and server.failures == {"case_a": 1}
+    assert not any(outbox.iterdir())
+
+
 def test_port_imports_no_jax():
-    """Neither the port (its serving and training entry points, its
-    kernels' wrappers) nor chip_smoke.py loads JAX or any module of the
-    JAX package (``pointunet_tpu``)."""
+    """Neither the port (its serving, segmenting and training entry
+    points, its kernels' wrappers) nor chip_smoke.py loads JAX or any
+    module of the JAX package (``pointunet_tpu``)."""
     code = (
         "import sys\n"
         "import pointunet_tpu_torch.cli.serve, pointunet_tpu_torch.convert\n"
         "import pointunet_tpu_torch.ops, pointunet_tpu_torch.models\n"
         "import pointunet_tpu_torch.cli.run_brats\n"
         "import pointunet_tpu_torch.cli.profile_train\n"
+        "import pointunet_tpu_torch.cli.segment\n"
         "import pointunet_tpu_torch.train.pointseg\n"
         "import pointunet_tpu_torch.ops.scatter_sorted\n"
+        "import pointunet_tpu_torch.ops.scatter_window\n"
+        "import pointunet_tpu_torch.ops.conv_cuda\n"
+        "import pointunet_tpu_torch.ops.window\n"
         "import pointunet_tpu_torch.ops.cuda_build\n"
+        "import pointunet_tpu_torch.models.fastconv\n"
+        "import pointunet_tpu_torch.pipeline.end2end\n"
+        "import pointunet_tpu_torch.pipeline.postprocess\n"
+        "import pointunet_tpu_torch.data.pointcloud\n"
         "import pointunet_tpu_torch.core.checkpoint\n"
         "import pointunet_tpu_torch.data.datasets\n"
         "import chip_smoke\n"
