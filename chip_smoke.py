@@ -8,8 +8,8 @@ training, at the full BraTS width, and fails (non-zero exit, no result
 line) on any fault. Phases:
 
 1. build: compile the four CUDA kernels from the sources in this checkout
-   (one ``nvcc`` each, in parallel), print each ptxas report and the
-   card's name and power limit;
+   (one ``nvcc`` each, in parallel), print each one's build seconds and
+   ptxas report and the card's name and power limit;
 2. kernel: on a 365,000-point cloud drawn by the port's sampler from a
    240x240x155 volume (35% random brain plus an all-voxel tumor ball),
    capture the six cell-window searches of the pyramid (self k=16 and up
@@ -27,8 +27,10 @@ line) on any fault. Phases:
    neighbours, C=8 (the reference's bar): the windowed scatter kernel
    within 1e-5 max relative error of the exact f64 ``index_add_``, within
    1e-6 x max |exact| of its plain version, bit-equal across two
-   launches; timed; then one ``windowed_gather`` backward with
-   ``POINTUNET_WINDOWED_SCATTER=1``: exactly 1 launch, the same bar;
+   launches and under a power-of-two scaling of the cotangents (its
+   fixed-point scale follows max |ct|); timed; then one
+   ``windowed_gather`` backward with ``POINTUNET_WINDOWED_SCATTER=1``:
+   exactly 1 launch, the same bar;
 5. serve: write 3 synthetic BraTS cases (4x240x240x155 f32, ellipsoid
    brain) to a temporary inbox and serve them with
    ``pointunet_tpu_torch.cli.serve`` (ROI 192x208x155, 365,000 points,
@@ -41,12 +43,14 @@ line) on any fault. Phases:
 6. conv: the inputs of the 19 eligible convs of one saliency forward, in
    bf16 at the serve ROI (1,4,160,208,192) and in f32 on one
    (1,4,64,160,160) window, through the conv kernel and its plain
-   version: in bf16 at most one bf16 ulp apart on every element (or
-   within the f32 bar where the products cancel below it), in f32
-   within 1e-5 x max |plain| and, with TF32 off, within 2e-5 x max(1,
-   max |F.conv3d|) of ``F.conv3d``; the fused bias bit-equal to the
-   rounded conv plus bias. Kernel (20 calls), plain (3) and ``F.conv3d``
-   (20) are timed;
+   version, each on the path ``conv_path`` gives it (printed: bf16
+   with Cin % 16 == 0 on the tensor cores, the rest on the CUDA cores):
+   in bf16 at most one bf16 ulp apart on every element (or within the
+   f32 bar where the products cancel below it) and bit-equal across two
+   launches, in f32 within 1e-5 x max |plain| and, with TF32 off, within
+   2e-5 x max(1, max |F.conv3d|) of ``F.conv3d``; the fused bias
+   bit-equal to the rounded conv plus bias. Kernel (20 calls), plain (3)
+   and ``F.conv3d`` (20) are timed;
 7. segment: ``cli.segment`` on one synthetic case with
    ``POINTUNET_FASTCONV=pallas``: the f32 sliding-window path (12
    windows) must launch the conv kernel 19 x 12 times and the KNN kernel
@@ -129,7 +133,7 @@ def cuda_ms(fn, repeats: int) -> float:
     return start.elapsed_time(end) / repeats
 
 
-def phase_build() -> str:
+def phase_build() -> tuple:
     from pointunet_tpu_torch.ops import (
         conv_cuda,
         cuda_build,
@@ -140,11 +144,13 @@ def phase_build() -> str:
 
     modules = (knn_cuda, scatter_sorted, conv_cuda, scatter_window)
     t0 = time.perf_counter()
-    sos = cuda_build.build_all([m.SOURCE for m in modules])
+    seconds = {}
+    sos = cuda_build.build_all([m.SOURCE for m in modules], seconds)
     for m in modules:
         m.load_library()
     log(f"[build] {', '.join(so.name for so in sos)} built/loaded in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s; nvcc seconds "
+        + ", ".join(f"{name} {sec:.1f}" for name, sec in seconds.items()))
     for so in sos:
         report = so.with_suffix(".log")
         if report.exists():              # present when this run compiled
@@ -162,7 +168,7 @@ def phase_build() -> str:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(f"[build] card: {card}")
-    return card
+    return card, seconds
 
 
 def bound_ms(nbytes: float, ops: float, rate: float = F32_OPS_S) -> float:
@@ -457,6 +463,12 @@ def phase_window(dev, pyr) -> dict:
     rel = float((got[inv].double() - exact).abs().max()) / scale
     plain_err = float((got - plain).abs().max())
     bitwise = torch.equal(got, again)
+    # the fixed-point scale follows max |ct|: a power-of-two scaling of
+    # the cotangents scales the result exactly
+    scaled = all(
+        torch.equal(sw.windowed_scatter(
+            sw.Plan(plan.ct * 2.0 ** e, *plan[1:]), n), got * 2.0 ** e)
+        for e in (40, -40))
     del again, plain
     ms = cuda_ms(lambda: sw.windowed_scatter(plan, n), 20)
     plain_ms = cuda_ms(lambda: sw.windowed_scatter_plain(plan, n), 3)
@@ -477,15 +489,17 @@ def phase_window(dev, pyr) -> dict:
     b_ms, by = bound_ms(nbytes, ops), bound_by(nbytes, ops)
     log(f"[window] Ns={n} rows={nqk} C={WINDOW_C} r={r} wqk={plan.wqk}: max "
         f"rel err {rel:.3e} vs exact, max |kernel - plain| "
-        f"{plain_err:.3e}, bit-equal relaunch {bitwise}; kernel {ms:.4f} "
+        f"{plain_err:.3e}, bit-equal relaunch {bitwise}, exact under "
+        f"scaling by 2^+-40 {scaled}; kernel {ms:.4f} "
         f"ms, plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms by {by}; windowed_scatter_add with its plan "
         f"{add_ms:.4f} ms")
-    if not rel < 1e-5 or not plain_err <= 1e-6 * scale or not bitwise:
+    if (not rel < 1e-5 or not plain_err <= 1e-6 * scale or not bitwise
+            or not scaled):
         raise AssertionError(
             f"windowed scatter: max rel err {rel:.3e}, max |kernel - plain| "
             f"{plain_err:.3e} (bound {1e-6 * scale:.3e}), bit-equal "
-            f"relaunch {bitwise}"
+            f"relaunch {bitwise}, exact under scaling {scaled}"
         )
 
     # its entry point: one gather backward with the kernel switched on
@@ -773,13 +787,17 @@ def _conv_case(name: str, x, w, b) -> dict:
     from pointunet_tpu_torch.ops import conv_cuda
 
     bf16 = x.dtype == torch.bfloat16
+    bsz, cin, d, h, wd = x.shape
+    cout = w.shape[0]
+    path = conv_cuda.conv_path(x.dtype, cin, cout, wd)
     got = conv_cuda.conv3d_3x3(x, w)
     plain = conv_cuda.conv3d_3x3_plain(x, w)
     torch.cuda.synchronize()
     gap = (got.float() - plain.float()).abs()
     max_err = float(gap.max())
     scale = float(plain.float().abs().max())
-    checks = {}
+    checks = {"path": path == ("tensor_cores" if bf16 and cin % 16 == 0
+                               else "cuda_cores")}
     if bf16:
         # one bf16 ulp, but never below the f32 bar: where the 27 x Cin
         # products cancel, the two f32 sums (in different orders) differ
@@ -793,6 +811,8 @@ def _conv_case(name: str, x, w, b) -> dict:
         log(f"[conv] {name}: {n_over} of {gap.numel()} elements more than "
             f"one bf16 ulp apart (|plain| at most {over_max:.3e} there)")
         del ulp, over
+        checks["bit-equal relaunch"] = torch.equal(
+            got, conv_cuda.conv3d_3x3(x, w))
     else:
         checks["within 1e-5 x max|plain|"] = max_err <= 1e-5 * scale
         lib = F.conv3d(x, w, padding=1)
@@ -811,15 +831,14 @@ def _conv_case(name: str, x, w, b) -> dict:
     ms = cuda_ms(lambda: conv_cuda.conv3d_3x3(x, w, b), 20)
     plain_ms = cuda_ms(lambda: conv_cuda.conv3d_3x3_plain(x, w, b), 3)
     library_ms = cuda_ms(lambda: F.conv3d(x, w, b, padding=1), 20)
-    bsz, cin, d, h, wd = x.shape
-    cout = w.shape[0]
     es = x.element_size()
     nbytes = es * (x.numel() + w.numel() + bsz * cout * d * h * wd
                    + (0 if b is None else b.numel()))
     ops = 2 * 27 * cin * cout * bsz * d * h * wd
     rate = BF16_OPS_S if bf16 else F32_OPS_S
     b_ms, by = bound_ms(nbytes, ops, rate), bound_by(nbytes, ops, rate)
-    log(f"[conv] {name} {str(x.dtype)[6:]} {cin}->{cout} at {(d, h, wd)}: "
+    log(f"[conv] {name} {str(x.dtype)[6:]} {cin}->{cout} at {(d, h, wd)} "
+        f"on {path}: "
         f"max |kernel - plain| {max_err:.3e} (max |plain| {scale:.3e}), "
         + ", ".join(f"{k} {v}" for k, v in checks.items())
         + f"; kernel {ms:.4f} ms ({ops / ms / 1e9:.2f} TFLOP/s), plain "
@@ -827,8 +846,8 @@ def _conv_case(name: str, x, w, b) -> dict:
         f"{b_ms:.4f} ms by {by}")
     if not all(checks.values()):
         raise AssertionError(f"conv kernel {name}: {checks}")
-    return {"case": name, "dtype": str(x.dtype)[6:], "cin": cin,
-            "cout": cout, "volume": [d, h, wd], "ms": ms,
+    return {"case": name, "dtype": str(x.dtype)[6:], "path": path,
+            "cin": cin, "cout": cout, "volume": [d, h, wd], "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": b_ms, "bound_by": by, "max_abs_err": max_err,
             "ops": ops, "bytes": nbytes}
@@ -1103,7 +1122,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
-    card = phase_build()
+    card, build_s = phase_build()
     kernel, pyr = phase_kernel(dev)
     bars = phase_scatter(dev, pyr)
     window, gather_counts = phase_window(dev, pyr)
@@ -1145,9 +1164,11 @@ def main() -> int:
     conv_entry = _conv_summary(conv, paths["segment"]["conv3d_3x3"],
                                by_path("conv3d_3x3"))
     window["launches_by_path"] = by_path("windowed_scatter")
+    entries = [kernel, scatter, conv_entry, window]
+    for entry in entries:                  # nvcc seconds of its source
+        entry["build_s"] = build_s.get(os.path.basename(entry["source"]))
     print(card, flush=True)
-    print(json.dumps({"kernels": [kernel, scatter, conv_entry, window]}),
-          flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -12,29 +12,61 @@
 //
 // The layout is the port's: the (B, Cin, D, H, W) activation and the
 // (Cout, Cin, 3, 3, 3) weight are read where they lie, nothing is permuted
-// to channels-last, and SAME padding is a bounds test while the halo is
-// staged. The TPU kernel's X padding to a multiple of 8, Cin padding to 128
-// lanes, z/y block padding, double-buffered DMA ring and optimisation
-// barrier are TPU artefacts and are not carried over.
+// to channels-last in device memory, and SAME padding is zero fill while
+// the halo is staged. The TPU kernel's X padding to a multiple of 8, Cin
+// padding to 128 lanes, z/y block padding, double-buffered DMA ring and
+// optimisation barrier are TPU artefacts and are not carried over.
 //
-// Design. One block owns one (b, z) output plane x TY rows x 32 columns x
-// TC output channels. Per chunk of 8 input channels it stages the haloed
+// What bounds it on the H100: operations. The attention stage's convs do
+// 2 x 27 x Cin x Cout operations a voxel on 10^6-10^7 voxels, far above
+// the card's ratio of operations to bytes (the head, 128 -> 2, is the one
+// bound by bytes). Two designs, chosen by ops/conv_cuda.py:conv_path:
+//
+// Tensor cores (bf16, Cin % 16 == 0, W even): conv3x3_tc_kernel, an
+// implicit GEMM. M is the output voxels, N is Cout, K is 27 taps x Cin.
+// One block owns one (b, z) plane x 16 rows x 32 columns (M = 512) x BN
+// output channels (BN = Cout padded to 8, at most 64; grid.z takes the
+// rest). A stage is 16 input channels of one input plane (dz): its haloed
+// (18, 32 + 2 vec) tile comes in by cp.async (vec = 8, 4 or 2 elements a
+// copy, as W's alignment allows; out-of-volume copies are zero fill) into
+// a ring of 3 stages, with the 9 (dy, dx) taps' weights, which the
+// wrapper packs once per call as (Cin / 16, 27, Cout padded to 8, 16)
+// bf16, K-major, zero past Cout, and which land in shared memory as 8 x
+// 16-byte core matrices. The dx = +-1 shifts break the 16-byte alignment
+// that ldmatrix needs in an x-major tile, so each stage is first
+// transposed in shared memory to voxel-major (18, 34) x 16 channels (32
+// bytes a voxel, halves XOR-swizzled so that 8 consecutive voxels hit
+// distinct banks): every tap is then an aligned voxel offset into that one
+// tile. 4 warpgroups each own 128 voxels as two m64 tiles (for the head's
+// BN = 8, 2 warpgroups own four); per tap each warp reads its 16 rows of
+// each by ldmatrix into registers (two register sets, the next tap's
+// loads overlapping this tap's products) and the warpgroup issues
+// wgmma.mma_async m64nBNk16 (bf16 x bf16 -> f32) with A from those
+// registers and B through an unswizzled shared-memory descriptor (LBO
+// 128 bytes along K, SBO 256 along N), the f32 sums in registers. The sum is rounded once to bf16,
+// the bias added in bf16, and the tile goes through shared memory so that
+// the channels-first stores are vectors along x. No split-K and no
+// atomics: two launches give the same bits. What holds it on the large
+// convs is staging the operands into shared memory, not the products: a
+// stage's 9 taps of weights (BN x 16 x 9) weigh as much as its input
+// tile, and removing the products or the transpose from the loop barely
+// changes its time; the warp-level mma.sync.m16n8k16 in place of wgmma
+// ran at the same speed and gave the same bits. So a block owns 512
+// output voxels, which halves the weight bytes staged a voxel against
+// 256.
+//
+// CUDA cores (f32, the init conv with Cin = 4, odd W): conv3x3_kernel.
+// One block owns one (b, z) output plane x TY rows x 32 columns x TC
+// output channels. Per chunk of 8 input channels it stages the haloed
 // input (3 x (TY + 2) x 34, as f32) and the chunk's 27 x TC weights in
 // shared memory. Each warp owns 4 rows and RC output channels; each lane
 // one column: it keeps the 4 x RC sums in registers, reads 6 input rows a
 // (dz, dx) tap column (consecutive lanes, consecutive words: no bank
 // conflicts) and the RC weights of a tap as one broadcast vector load, and
 // does 4 x RC fused multiply-adds per weight vector. The sum runs over
-// (channel, dz, dx, dy) in that order; the output is written once.
-//
-// What bounds it on the H100: operations. The attention stage's convs do
-// 2 x 27 x Cin x Cout multiply-adds a voxel on 10^6-10^7 voxels, far above
-// the card's ratio of operations to bytes, and this kernel runs them on
-// the CUDA cores in f32 (67 TFLOP/s peak), not on the tensor cores (989
-// TFLOP/s in bf16): the bound for bf16 input is 15x below what this design
-// can reach. Tensor cores (wgmma on bf16 tiles staged by TMA) are the next
-// step. f32 input must stay off TF32, so its bound is the CUDA cores' rate
-// and this design is the right shape for it.
+// (channel, dz, dx, dy) in that order; the output is written once. f32
+// stays here: TF32 products would miss the f32 bar, so its bound is the
+// CUDA cores' 67 TFLOP/s.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -251,6 +283,435 @@ int dispatch(const void* x, const void* w, const void* bias, void* out, int b,
   return launch<T, 8, 4>(x, w, bias, out, b, cin, cout, d, h, wd, stream);
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core design (bf16)
+
+constexpr int kTcTX = 32;             // output columns a block
+constexpr int kTcTY = 16;             // output rows a block (M = 512)
+constexpr int kTcM = kTcTX * kTcTY;
+constexpr int kTcCK = 16;             // input channels a stage (one k16)
+constexpr int kTcStages = 3;          // cp.async ring depth
+constexpr int kTcRows = kTcTY + 2;    // staged rows (y halo)
+constexpr int kTcCols = kTcTX + 2;    // transposed columns (x halo)
+constexpr int kTcRawX = kTcTX + 16;   // raw row: 32 + 2 vec elements, vec <= 8
+constexpr int kTcRawCh = kTcRows * kTcRawX;          // raw elements a channel
+constexpr int kTcRaw = kTcCK * kTcRawCh;             // raw elements a stage
+constexpr int kTcVox = kTcRows * kTcCols;            // transposed voxels
+constexpr int kTcOutX = kTcM + 8;     // epilogue row (padded: no conflicts)
+
+// A block is 4 warpgroups of 2 m64 tiles each, or, for the head's N = 8
+// (whose staging, not its products, is the cost), 2 warpgroups of 4
+template <int BN>
+struct TcTile {
+  static constexpr int kWG = BN == 8 ? 2 : 4;    // warpgroups
+  static constexpr int kThreads = kWG * 128;
+  static constexpr int kMSub = kTcM / kWG / 64;  // m64 tiles a warpgroup
+  static constexpr int kW = 9 * BN * kTcCK;      // weight elements a stage
+  static constexpr int kAcc = BN / 2;            // f32 sums a thread, m64
+  static constexpr size_t kSmem =
+      sizeof(__nv_bfloat16) *
+      (kTcStages * (kTcRaw + kW) + kTcVox * kTcCK);
+  static_assert(BN % 8 == 0 && BN <= 64, "wgmma N");
+  static_assert(kTcStages * kTcRaw >= BN * kTcOutX, "epilogue fits");
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of ``bytes`` (4, 8 or 16); zero fill when ``fill`` is false
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool fill) {
+  const unsigned n = fill ? BYTES : 0;
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
+                     "r"(smem_u32(dst)), "l"(src), "r"(n));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::
+                     "r"(smem_u32(dst)), "l"(src), "n"(BYTES), "r"(n));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
+                                            const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// cp.async writes are made visible to the tensor cores' (async proxy)
+// reads of shared memory
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// shared-memory matrix descriptor of a K-major, unswizzled B tile: 8 x 16
+// byte core matrices, ``lbo`` bytes apart along K, ``sbo`` along N
+__device__ __forceinline__ unsigned long long wgmma_desc(const void* p,
+                                                         unsigned lbo,
+                                                         unsigned sbo) {
+  return static_cast<unsigned long long>((smem_u32(p) & 0x3ffff) >> 4) |
+         (static_cast<unsigned long long>(lbo >> 4) << 16) |
+         (static_cast<unsigned long long>(sbo >> 4) << 32);
+}
+
+// D (64 x N, f32, registers) += A (64 x 16 bf16, registers: each warp of
+// the warpgroup its 16 rows, as mma.m16n8k16's A) x B (16 x N, bf16,
+// shared memory through ``desc``)
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2],
+                                           const unsigned (&a)[4],
+                                           unsigned long long desc);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<8>(float (&d)[4],
+                                              const unsigned (&a)[4],
+                                              unsigned long long desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<16>(float (&d)[8],
+                                              const unsigned (&a)[4],
+                                              unsigned long long desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16],
+                                              const unsigned (&a)[4],
+                                              unsigned long long desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32],
+                                              const unsigned (&a)[4],
+                                              unsigned long long desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// element offset of (row r, 8-element half h) in a tile of 16-element rows
+// whose halves are swapped every 4 rows: ldmatrix's 8 row addresses (8
+// consecutive rows, one half) then fall in 8 distinct 16-byte bank groups
+__device__ __forceinline__ int swz(int r, int h) {
+  return r * 16 + ((h ^ ((r >> 2) & 1)) << 3);
+}
+
+// element offset of (row n, 8-element half h) in a B tile of 8 x 16-byte
+// core matrices, n-group major: core matrix (n / 8, h) at ((n / 8) * 2 + h)
+// * 64 elements, so the K-adjacent one is 128 bytes on and the N-adjacent
+// one 256 bytes (the descriptor's LBO and SBO)
+__device__ __forceinline__ int b_core(int n, int h) {
+  return (((n >> 3) * 2 + h) << 6) + ((n & 7) << 3);
+}
+
+// Issue the cp.async copies of stage s: input channels (s / 3) * 16 + 0..15
+// of input plane z + s % 3 - 1, rows y0 - 1 .. y0 + 8, columns
+// x0 - vec .. x0 + 31 + vec, and the weights of its 9 (dy, dx) taps for
+// output channels n0 .. n0 + BN - 1.
+template <int BN, int VEC, int THREADS>
+__device__ __forceinline__ void tc_issue(
+    __nv_bfloat16* raw, __nv_bfloat16* ws, const __nv_bfloat16* xb,
+    const __nv_bfloat16* wp, int s, int z, int y0, int x0, int n0, int np,
+    int d, int h, int wd) {
+  const int cc = s / 3;
+  const int dz = s % 3;
+  const int zz = z + dz - 1;
+  const bool zin = zz >= 0 && zz < d;
+  const long long plane = static_cast<long long>(h) * wd;
+  constexpr int kQ = kTcTX / VEC + 2;            // vectors a staged row
+  for (int i = threadIdx.x; i < kTcCK * kTcRows * kQ; i += THREADS) {
+    const int q = i % kQ;
+    const int r = (i / kQ) % kTcRows;
+    const int c = i / (kQ * kTcRows);
+    const int yy = y0 - 1 + r;
+    const int xs = x0 - VEC + q * VEC;
+    const bool in = zin && yy >= 0 && yy < h && xs >= 0 && xs < wd;
+    const __nv_bfloat16* src =
+        in ? xb + (static_cast<long long>(cc * kTcCK + c) * d + zz) * plane +
+                 static_cast<long long>(yy) * wd + xs
+           : xb;
+    cp_async<VEC * 2>(raw + c * kTcRawCh + r * kTcRawX + q * VEC, src, in);
+  }
+  const __nv_bfloat16* wsrc =
+      wp + ((static_cast<long long>(cc) * 27 + dz * 9) * np + n0) * kTcCK;
+  for (int i = threadIdx.x; i < 9 * BN * 2; i += THREADS) {
+    const int hh = i & 1;
+    const int n = (i >> 1) % BN;
+    const int t9 = (i >> 1) / BN;
+    const bool in = n0 + n < np;        // zeros past the packed columns
+    cp_async<16>(ws + t9 * BN * kTcCK + b_core(n, hh),
+                 in ? wsrc + (static_cast<long long>(t9) * np + n) * kTcCK +
+                          hh * 8
+                    : wp,
+                 in);
+  }
+}
+
+template <int BN, int VEC>
+__global__ void __launch_bounds__(TcTile<BN>::kThreads, BN == 8 ? 2 : 1)
+    conv3x3_tc_kernel(
+    const __nv_bfloat16* __restrict__ x,      // (B, Cin, D, H, W)
+    const __nv_bfloat16* __restrict__ wp,     // (Cin / 16, 27, np, 16)
+    const __nv_bfloat16* __restrict__ bias,   // (Cout,) or null
+    __nv_bfloat16* __restrict__ out,          // (B, Cout, D, H, W)
+    int cin, int cout, int np, int d, int h, int wd, int x_tiles) {
+  using G = TcTile<BN>;
+  constexpr int ACC = G::kAcc;
+  constexpr int MSUB = G::kMSub;
+  constexpr int THREADS = G::kThreads;
+  extern __shared__ __align__(128) __nv_bfloat16 tc_smem[];
+  __nv_bfloat16* raw = tc_smem;                          // (stages, kTcRaw)
+  __nv_bfloat16* ws = raw + kTcStages * kTcRaw;          // (stages, kW)
+  __nv_bfloat16* tv = ws + kTcStages * G::kW;            // (kTcVox, 16)
+
+  const int x0 = (blockIdx.x % x_tiles) * kTcTX;
+  const int y0 = (blockIdx.x / x_tiles) * kTcTY;
+  const int b = blockIdx.y / d;
+  const int z = blockIdx.y % d;
+  const int n0 = blockIdx.z * BN;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // warpgroup warp / 4 owns M rows [64 MSUB (warp / 4), + 64 MSUB) as
+  // MSUB m64 tiles; each warp gives the wgmma its 16 rows of each
+  const int m_warp = (warp >> 2) * (MSUB * 64) + (warp & 3) * 16;
+  const long long plane = static_cast<long long>(h) * wd;
+  const __nv_bfloat16* xb = x + static_cast<long long>(b) * cin * d * plane;
+
+  float acc[MSUB][ACC];
+#pragma unroll
+  for (int i = 0; i < MSUB; ++i) {
+#pragma unroll
+    for (int e = 0; e < ACC; ++e) acc[i][e] = 0.0f;
+  }
+
+  const int n_stages = (cin / kTcCK) * 3;
+#pragma unroll
+  for (int s = 0; s < kTcStages - 1; ++s) {
+    if (s < n_stages) {
+      tc_issue<BN, VEC, THREADS>(raw + s * kTcRaw, ws + s * G::kW, xb, wp,
+                                 s, z, y0, x0, n0, np, d, h, wd);
+    }
+    cp_async_commit();
+  }
+
+  // this lane's ldmatrix row of an A tile: voxel m_warp + (lane & 15) + 64 i
+  // and channel half lane >> 4
+  const int a_m = m_warp + (lane & 15);
+  const int a_h = lane >> 4;
+
+  for (int s = 0; s < n_stages; ++s) {
+    cp_async_wait<kTcStages - 2>();
+    fence_proxy_async();
+    __syncthreads();     // stage s landed; stage s - 1 fully consumed
+    const int sn = s + kTcStages - 1;
+    if (sn < n_stages) {
+      const int slot = sn % kTcStages;
+      tc_issue<BN, VEC, THREADS>(raw + slot * kTcRaw, ws + slot * G::kW,
+                                 xb, wp, sn, z, y0, x0, n0, np, d, h, wd);
+    }
+    cp_async_commit();
+
+    // transpose the raw (channel, row, x) tile to (voxel, channel)
+    const __nv_bfloat16* rs = raw + (s % kTcStages) * kTcRaw;
+    for (int i = threadIdx.x; i < 2 * kTcVox; i += THREADS) {
+      const int v = i % kTcVox;
+      const int hh = i / kTcVox;
+      const int r = v / kTcCols;
+      const int col = v % kTcCols - 1 + VEC;
+      const __nv_bfloat16* src = rs + hh * 8 * kTcRawCh + r * kTcRawX + col;
+      __align__(16) __nv_bfloat16 vals[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) vals[e] = src[e * kTcRawCh];
+      *reinterpret_cast<uint4*>(tv + swz(v, hh)) =
+          *reinterpret_cast<const uint4*>(vals);
+    }
+    __syncthreads();
+
+    // 9 (dy, dx) taps: A fragments by ldmatrix into one of two register
+    // sets while the other set's wgmmas run
+    const __nv_bfloat16* wst = ws + (s % kTcStages) * G::kW;
+    unsigned af[2][MSUB][4];
+    auto load_a = [&](int t9, unsigned (&dst)[MSUB][4]) {
+      const int dy = t9 / 3;
+      const int dx = t9 % 3;
+#pragma unroll
+      for (int i = 0; i < MSUB; ++i) {
+        const int m = a_m + i * 64;
+        const int v = ((m / kTcTX) + dy) * kTcCols + (m % kTcTX) + dx;
+        ldmatrix_x4(dst[i], tv + swz(v, a_h));
+      }
+    };
+    load_a(0, af[0]);
+#pragma unroll
+    for (int t9 = 0; t9 < 9; ++t9) {
+      const unsigned long long desc =
+          wgmma_desc(wst + t9 * BN * kTcCK, 128, 256);
+      wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < MSUB; ++i) {
+        wgmma_bf16<BN>(acc[i], af[t9 & 1][i], desc);
+      }
+      wgmma_commit();
+      if (t9 + 1 < 9) {
+        wgmma_wait<1>();         // the other register set is free again
+        load_a(t9 + 1, af[(t9 + 1) & 1]);
+      }
+    }
+    wgmma_wait<0>();             // the weights of this stage are read
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // epilogue: round to bf16, add the bias in bf16, (n, m) tile in shared
+  // memory, then vector stores along x
+  __nv_bfloat16* so = tc_smem;                           // (BN, kTcOutX)
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < MSUB; ++i) {
+#pragma unroll
+    for (int e = 0; e < ACC; ++e) {
+      const int m = m_warp + i * 64 + g + ((e >> 1) & 1) * 8;
+      const int n = (e >> 2) * 8 + 2 * t + (e & 1);
+      __nv_bfloat16 o = __float2bfloat16_rn(acc[i][e]);
+      if (bias != nullptr && n0 + n < cout) {
+        o = __float2bfloat16_rn(__bfloat162float(o) +
+                                __bfloat162float(bias[n0 + n]));
+      }
+      so[n * kTcOutX + m] = o;
+    }
+  }
+  __syncthreads();
+  constexpr int kQ = kTcTX / VEC;
+  const long long vol = plane * d;
+  for (int i = threadIdx.x; i < BN * kTcTY * kQ; i += THREADS) {
+    const int q = i % kQ;
+    const int r = (i / kQ) % kTcTY;
+    const int n = i / (kQ * kTcTY);
+    const int yy = y0 + r;
+    const int xx = x0 + q * VEC;
+    if (n0 + n >= cout || yy >= h || xx >= wd) continue;
+    const __nv_bfloat16* src = so + n * kTcOutX + r * kTcTX + q * VEC;
+    __nv_bfloat16* dst = out + (static_cast<long long>(b) * cout + n0 + n) *
+                                   vol +
+                         z * plane + static_cast<long long>(yy) * wd + xx;
+    if constexpr (VEC == 8) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else if constexpr (VEC == 4) {
+      *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+    } else {
+      *reinterpret_cast<unsigned*>(dst) =
+          *reinterpret_cast<const unsigned*>(src);
+    }
+  }
+}
+
+template <int BN, int VEC>
+int launch_tc(const void* x, const void* wp, const void* bias, void* out,
+              int b, int cin, int cout, int np, int d, int h, int wd,
+              cudaStream_t stream) {
+  using G = TcTile<BN>;
+  auto kernel = conv3x3_tc_kernel<BN, VEC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(G::kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int x_tiles = (wd + kTcTX - 1) / kTcTX;
+  const int y_tiles = (h + kTcTY - 1) / kTcTY;
+  const dim3 grid(x_tiles * y_tiles, b * d, (np + BN - 1) / BN);
+  kernel<<<grid, G::kThreads, G::kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(wp),
+      static_cast<const __nv_bfloat16*>(bias),
+      static_cast<__nv_bfloat16*>(out), cin, cout, np, d, h, wd, x_tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int VEC>
+int dispatch_tc(const void* x, const void* wp, const void* bias, void* out,
+                int b, int cin, int cout, int np, int d, int h, int wd,
+                cudaStream_t stream) {
+  if (np <= 8) {
+    return launch_tc<8, VEC>(x, wp, bias, out, b, cin, cout, np, d, h, wd,
+                             stream);
+  }
+  if (np <= 16) {
+    return launch_tc<16, VEC>(x, wp, bias, out, b, cin, cout, np, d, h, wd,
+                              stream);
+  }
+  if (np <= 32) {
+    return launch_tc<32, VEC>(x, wp, bias, out, b, cin, cout, np, d, h, wd,
+                              stream);
+  }
+  return launch_tc<64, VEC>(x, wp, bias, out, b, cin, cout, np, d, h, wd,
+                            stream);
+}
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes (ops/conv_cuda.py). ``dtype`` is
@@ -272,6 +733,43 @@ extern "C" int conv3x3_launch(const void* x, const void* w, const void* bias,
   if (dtype == 1) {
     return dispatch<__nv_bfloat16>(x, w, bias, out, b, cin, cout, d, h, wd,
                                    st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Plain C entry point of the tensor-core design, loaded with ctypes
+// (ops/conv_cuda.py). bf16 x (B, Cin, D, H, W), the packed weight ``wp``
+// (Cin / 16, 27, np, 16) with wp[c / 16, dz * 9 + dy * 3 + dx, o, c % 16]
+// = w[o, c, dz, dy, dx] and zeros for o >= Cout (np = Cout rounded up to
+// 8), bias (Cout,) or null, out (B, Cout, D, H, W). Takes Cin % 16 == 0
+// and even W. Launches on ``stream`` and does not synchronise. Returns
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for arguments the kernel does not take.
+extern "C" int conv3x3_tc_launch(const void* x, const void* wp,
+                                 const void* bias, void* out, int b, int cin,
+                                 int cout, int np, int d, int h, int wd,
+                                 void* stream) {
+  if (b < 1 || cin < 16 || cin % 16 != 0 || cout < 1 || np % 8 != 0 ||
+      np < cout || np > cout + 7 || d < 1 || h < 1 || wd < 2 || wd % 2 != 0 ||
+      static_cast<long long>(b) * d > 65535 || (np + 63) / 64 > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // elements a copy: the widest vector that W and the alignment of x and
+  // out allow (rows, planes and channels then start on a vector)
+  if (reinterpret_cast<unsigned long long>(wp) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const unsigned long long align = reinterpret_cast<unsigned long long>(x) |
+                                   reinterpret_cast<unsigned long long>(out);
+  if (wd % 8 == 0 && align % 16 == 0) {
+    return dispatch_tc<8>(x, wp, bias, out, b, cin, cout, np, d, h, wd, st);
+  }
+  if (wd % 4 == 0 && align % 8 == 0) {
+    return dispatch_tc<4>(x, wp, bias, out, b, cin, cout, np, d, h, wd, st);
+  }
+  if (align % 4 == 0) {
+    return dispatch_tc<2>(x, wp, bias, out, b, cin, cout, np, d, h, wd, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

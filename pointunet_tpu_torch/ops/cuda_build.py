@@ -7,6 +7,8 @@ with ``nvcc`` for ``sm_90a`` at first use into ``pointunet_tpu_torch/_build/``
 (ignored by git), under a name keyed on a hash of the source, keeps the
 compiler's ``-Xptxas -v`` report (registers, spills) beside the library as
 ``.log``, loads it with ctypes and returns the typed launch function.
+Each source is one translation unit with no headers of its own, so the
+hash of the source covers everything a build reads from the repo.
 Nothing is built when a module is imported: the CPU tests import every
 module and have no ``nvcc``.
 """
@@ -17,8 +19,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -46,9 +49,12 @@ def library_path(source: Path) -> Path:
     return BUILD_DIR / f"{source.stem}_{digest}.so"
 
 
-def build_all(sources: Sequence[Path]) -> List[Path]:
+def build_all(sources: Sequence[Path],
+              seconds: Optional[Dict[str, float]] = None) -> List[Path]:
     """Compile each source whose hash has no library yet, one ``nvcc``
-    per source, all started together; the libraries' paths."""
+    per source, all started together; the libraries' paths. ``seconds``,
+    when given, receives the wall seconds of each compiled source's
+    ``nvcc`` by file name."""
     jobs = []
     for source in sources:
         so = library_path(source)
@@ -61,19 +67,27 @@ def build_all(sources: Sequence[Path]) -> List[Path]:
             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
             "-Xptxas", "-v", "-o", str(tmp), str(source),
         ]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-        jobs.append((source, so, tmp, proc))
+        log = open(so.with_suffix(".log"), "w")
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)
+        jobs.append((source, so, tmp, proc, log, time.perf_counter()))
     failed = []
-    for source, so, tmp, proc in jobs:
-        out, _ = proc.communicate()
-        so.with_suffix(".log").write_text(out)
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed on {source.name} "
-                          f"({proc.returncode}):\n{out}")
-        else:
-            os.replace(tmp, so)
+    pending = list(jobs)
+    while pending:                     # each job's seconds as it ends
+        for job in list(pending):
+            source, so, tmp, proc, log, t0 = job
+            if proc.poll() is None:
+                continue
+            pending.remove(job)
+            if seconds is not None:
+                seconds[source.name] = time.perf_counter() - t0
+            log.close()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {source.name} "
+                              f"({proc.returncode}):\n"
+                              f"{so.with_suffix('.log').read_text()}")
+            else:
+                os.replace(tmp, so)
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("\n".join(failed))
     return [library_path(s) for s in sources]

@@ -14,7 +14,14 @@ Tolerances:
 * the Conv route vs ``F.conv3d`` (f32): 1e-5 absolute and relative, sum
   order only;
 * ``SaliencyUNet`` with the route on vs the JAX model at its CPU default:
-  atol 3e-4, rtol 1e-4, the bar of tests/test_torch_saliency.py.
+  atol 3e-4, rtol 1e-4, the bar of tests/test_torch_saliency.py;
+* the tensor-core path's packed weight read back through its documented
+  index formula: equal (a copy), zeros in the padded columns; the conv
+  summed from the packed weight the way the kernel indexes it (stage of
+  16 channels and one dz, 9 (dy, dx) taps): within 1e-5 x max |plain| of
+  the plain version (f32, sum order only);
+* the path choice at the 19 captured shapes of one bf16 ROI forward and
+  one f32 window: exact.
 
 The CUDA kernel cannot run here; its plain version computes the same
 function, and chip_smoke.py holds the kernel to it on the card.
@@ -223,3 +230,81 @@ def test_saliency_unet_with_route_matches_reference(monkeypatch):
     np.testing.assert_allclose(
         got.permute(0, 2, 3, 4, 1).numpy(), want, atol=3e-4, rtol=1e-4
     )
+
+
+# the 19 eligible convs of one saliency forward at the serve ROI
+# (1, 4, 160, 208, 192): (Cin, Cout, W)
+ROI_CONVS = (
+    [(4, 16, 192), (16, 16, 192), (16, 16, 192), (32, 32, 96), (32, 32, 96),
+     (64, 64, 48), (64, 64, 48), (128, 128, 24), (128, 128, 24),
+     (256, 256, 12), (256, 256, 12), (16, 64, 192), (32, 64, 96),
+     (128, 128, 48), (128, 128, 48), (64, 64, 192), (64, 64, 192),
+     (128, 64, 192), (128, 2, 192)]
+)
+
+
+@pytest.mark.parametrize("cin,cout", [(32, 2), (16, 64), (48, 20)])
+def test_packed_weight_reads_back(cin, cout):
+    w = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (cout, cin, 3, 3, 3)).astype(np.float32)).bfloat16()
+    wp = conv_cuda.pack_weight(w)
+    np_ = -(-cout // 8) * 8
+    assert wp.shape == (cin // 16, 27, np_, 16) and wp.dtype == w.dtype
+    back = torch.empty_like(w)
+    for o in range(cout):
+        for c in range(cin):
+            for dz in range(3):
+                for dy in range(3):
+                    for dx in range(3):
+                        back[o, c, dz, dy, dx] = wp[c // 16,
+                                                    dz * 9 + dy * 3 + dx,
+                                                    o, c % 16]
+    assert torch.equal(back, w)
+    assert not wp[:, :, cout:].any()
+
+
+def _conv_from_packed(x, wp, cout):
+    """The tensor-core kernel's sum in plain torch: stages of 16 input
+    channels and one input plane dz, each the 9 (dy, dx) taps' products
+    of the shifted tile with the packed (16, N) weight block."""
+    b, cin, d, h, wd = x.shape
+    xp = torch.nn.functional.pad(x.float(), (1, 1, 1, 1, 1, 1))
+    acc = torch.zeros((b, wp.shape[2], d, h, wd))
+    for cc in range(cin // 16):
+        for dz in range(3):
+            for t9 in range(9):
+                dy, dx = divmod(t9, 3)
+                tile = xp[:, cc * 16:(cc + 1) * 16, dz:dz + d, dy:dy + h,
+                          dx:dx + wd]
+                acc += torch.einsum("bcdhw,nc->bndhw", tile,
+                                    wp[cc, dz * 9 + t9].float())
+    return acc[:, :cout]
+
+
+@pytest.mark.parametrize("cin,cout,shape", [
+    (16, 16, (4, 6, 8)), (32, 2, (3, 5, 12)), (32, 20, (5, 4, 6)),
+])
+def test_packed_conv_matches_plain(cin, cout, shape):
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal(
+        (1, cin) + shape).astype(np.float32))
+    w = torch.from_numpy(
+        (rng.standard_normal((cout, cin, 3, 3, 3)) * 0.1).astype(np.float32))
+    want = conv_cuda.conv3d_3x3_plain(x, w)
+    got = _conv_from_packed(x, conv_cuda.pack_weight(w), cout)
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def test_conv_path_at_the_captured_shapes():
+    assert len(ROI_CONVS) == 19
+    paths = [conv_cuda.conv_path(torch.bfloat16, cin, cout, wd)
+             for cin, cout, wd in ROI_CONVS]
+    assert paths[0] == "cuda_cores"                  # the init conv, 4 -> 16
+    assert paths[1:] == ["tensor_cores"] * 18
+    # the f32 window (1, 4, 64, 160, 160): every conv on the CUDA cores
+    for cin, cout, wd in ROI_CONVS:
+        assert conv_cuda.conv_path(torch.float32, cin, cout,
+                                   wd * 160 // 192) == "cuda_cores"
+    assert conv_cuda.conv_path(torch.bfloat16, 16, 16, 13) == "cuda_cores"
+    assert conv_cuda.conv_path(torch.bfloat16, 24, 16, 12) == "cuda_cores"

@@ -17,6 +17,12 @@ Tolerances:
   must drop the same ones;
 * plain vs the f64 ``index_add_``: the same 1e-6 relative bound (f32
   sums of a few dozen terms in another order);
+* ``window_owner_plain`` (the kernel's owner pass: a flat row's sorted
+  position when the row lies in an unthresholded window of that
+  position's tile, else -1): the rows it keeps are the rows the
+  thresholded windows keep, exactly (counts with ct = 1 are equal
+  integers), and ``ct`` summed by owner with ``index_add_`` is within
+  1e-6 x max |exact| of the plain version and of the reference kernel;
 * ``windowed_gather``: forward equal to ``index_select``; backward (on
   the CPU always ``index_add_``) equal to ``index_add_``'s gradient.
 """
@@ -121,6 +127,53 @@ def test_plain_matches_reference_kernel(rng, interpret, clustered, window):
         assert dropped > 1e-3                     # the windows decided
     else:
         assert dropped <= REL * float(exact.abs().max())
+
+
+@pytest.mark.parametrize("clustered", [False, True])
+@pytest.mark.parametrize("window", ["reference", "cut"])
+def test_owner_sum_matches_windows(rng, interpret, clustered, window):
+    """The union-of-windows equivalence the kernel's one pass relies on,
+    on the cases of ``test_plain_matches_reference_kernel``."""
+    n, k, c = 3000, 8, 4
+    pts, idx, ct = _case(rng, n, k, c, clustered)
+    r = _grid_resolution(n, 1.8)
+    wqk = ref._reverse_window_rows(n, n, k, r)
+    if window == "cut":
+        wqk = wqk // 16 // 128 * 128 + 128
+    t = torch.from_numpy
+    plan = sw._plan(t(ct), t(idx), t(pts), t(pts), r, wqk)
+    owner = sw.window_owner_plain(plan, n)
+    kept = owner >= 0
+    if window == "cut" or clustered:
+        assert not kept.all()                     # the windows decided
+    # the same rows: counts of kept rows per owner, exact integers
+    ones = sw.Plan(torch.ones_like(plan.ct[:, :1]), *plan[1:])
+    counts = torch.bincount(owner[kept], minlength=n).float()
+    assert torch.equal(sw.windowed_scatter_plain(ones, n)[:, 0], counts)
+    got = torch.zeros((n, c)).index_add_(0, owner[kept], plan.ct[kept])
+    _assert_close(got, sw.windowed_scatter_plain(plan, n))
+    want = ref._windowed_scatter_impl(
+        jnp.asarray(ct.reshape(n * k, c)), jnp.asarray(idx.reshape(-1)),
+        jnp.asarray(pts), jnp.asarray(pts), n_support=n, k=k, resolution=r,
+        wqk=wqk, c_pad=-(-c // 8) * 8 + 8,
+    )
+    _assert_close(got[plan.inv.long()], want)
+
+
+def test_owner_drops_ids_out_of_range(rng):
+    n, k, c = 600, 4, 2
+    pts, idx, ct = _case(rng, n, k, c, False)
+    idx[0, 0], idx[1, 1] = -1, n
+    t = torch.from_numpy
+    r = _grid_resolution(n, 1.8)
+    plan = sw._plan(t(ct), t(idx), t(pts), t(pts), r,
+                    sw._reverse_window_rows(n, n, k, r))
+    owner = sw.window_owner_plain(plan, n)
+    bad = (plan.idx < 0) | (plan.idx >= n)
+    assert int(bad.sum()) == 2 and bool((owner[bad] == -1).all())
+    kept = owner >= 0
+    got = torch.zeros((n, c)).index_add_(0, owner[kept], plan.ct[kept])
+    _assert_close(got, sw.windowed_scatter_plain(plan, n))
 
 
 @pytest.mark.parametrize("cloud", ["uniform", "voxels"])
