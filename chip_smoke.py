@@ -19,10 +19,11 @@ line) on any fault. Phases:
    overall and >= 0.995 on tumor queries. Times come from CUDA events;
 3. scatter: on that cloud's pyramid, the sorted scatter kernel at the
    reference's three bars (L0 self C=8, L1 self C=16, L0 pool C=32 with
-   unsorted queries). Each result must be within max relative error 1e-5
-   of the exact f64 ``index_add_``, within 1e-6 x max |exact| of its
-   plain version (f32 summation order), and bit-equal across two
-   launches; kernel, plain and ``index_add_`` are timed;
+   unsorted queries, read through their permutation). Each result must
+   be within max relative error 1e-5 of the exact f64 ``index_add_``,
+   within 1e-6 x max |exact| of its plain version (f32 summation order),
+   and bit-equal across two launches; kernel, plain and ``index_add_``
+   are timed;
 4. window: the same cloud in its own row order with its level-0 self
    neighbours, C=8 (the reference's bar): the windowed scatter kernel
    within 1e-5 max relative error of the exact f64 ``index_add_``, within
@@ -43,14 +44,16 @@ line) on any fault. Phases:
 6. conv: the inputs of the 19 eligible convs of one saliency forward, in
    bf16 at the serve ROI (1,4,160,208,192) and in f32 on one
    (1,4,64,160,160) window, through the conv kernel and its plain
-   version, each on the path ``conv_path`` gives it (printed: bf16
-   with Cin % 16 == 0 on the tensor cores, the rest on the CUDA cores):
+   version, each on the path ``conv_path`` gives it (printed: bf16 with
+   Cin % 16 == 0 on the tensor cores, f32 with Cin % 8 == 0 on the
+   tensor cores with 3xTF32 products, the init conv on the CUDA cores):
    in bf16 at most one bf16 ulp apart on every element (or within the
-   f32 bar where the products cancel below it) and bit-equal across two
-   launches, in f32 within 1e-5 x max |plain| and, with TF32 off, within
-   2e-5 x max(1, max |F.conv3d|) of ``F.conv3d``; the fused bias
-   bit-equal to the rounded conv plus bias. Kernel (20 calls), plain (3)
-   and ``F.conv3d`` (20) are timed;
+   f32 bar where the products cancel below it), in f32 within 1e-5 x
+   max |plain| and, with TF32 off, within 2e-5 x max(1, max |F.conv3d|)
+   of ``F.conv3d``; bit-equal across two launches; the fused bias
+   bit-equal to the conv plus bias. Kernel (20 calls), plain (3) and
+   ``F.conv3d`` (20) are timed; f32 shapes print both bounds (3xTF32 on
+   the tensor cores, which they are held to, and the CUDA cores');
 7. segment: ``cli.segment`` on one synthetic case with
    ``POINTUNET_FASTCONV=pallas``: the f32 sliding-window path (12
    windows) must launch the conv kernel 19 x 12 times and the KNN kernel
@@ -65,8 +68,8 @@ line) on any fault. Phases:
    losses whose last three average below the first, the step split by
    CUDA events (pyramid, forward, backward, optimizer), peak memory, and
    exactly 8 scatter and 6 KNN kernel launches a step. The 8 scatter
-   inputs of the first step are captured and held to the checks of
-   phase 3.
+   inputs of the first step (bf16 ct) are captured and held to the
+   checks of phase 3, with ct widened to f32 and as captured.
 
 Every path is driven with the kernels' launch counts set to 0 just before
 it and read just after. Before the last line it prints the card
@@ -113,6 +116,10 @@ CLOUD_POINTS = 600_000         # labelled points of a prepared cloud
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 BF16_OPS_S = 989e12
+TF32_OPS_S = 495e12
+# f32-accurate products on the tensor cores take three TF32 products
+# (3xTF32): the least time for f32 conv work is 3 x ops / 495 TFLOP/s
+F32_TC_OPS_S = TF32_OPS_S / 3
 
 
 def log(msg: str) -> None:
@@ -349,16 +356,24 @@ def phase_kernel(dev):
 
 def _scatter_case(name: str, args) -> dict:
     """One sorted-scatter input through the kernel (twice), its plain
-    version and the exact f64 ``index_add_``; times and bound."""
+    version and the exact f64 ``index_add_``; times and bound. ``args``
+    are ``scatter_sorted``'s: (ct, idx, s_ids, qcs, k, r[, q_perm])."""
     from pointunet_tpu_torch.ops import scatter_sorted as ss
 
-    ct, idx, s_ids, qcs, k, r = args
+    ct, idx, s_ids, qcs, k, r = args[:6]
+    q_perm = args[6] if len(args) > 6 else None
     ns, (nqk, c) = s_ids.shape[0], ct.shape
+    # idx in ct's own row order, for the yardsticks (the same function)
+    idx_ct = idx
+    if q_perm is not None:
+        idx_ct = torch.empty_like(idx).view(-1, k)
+        idx_ct[q_perm.long()] = idx.view(-1, k)
+        idx_ct = idx_ct.reshape(-1)
     got = ss.scatter_sorted(*args)
     again = ss.scatter_sorted(*args)
     plain = ss.scatter_sorted_plain(*args)
     exact = torch.zeros((ns, c), dtype=torch.float64, device=ct.device)
-    exact.index_add_(0, idx.long(), ct.double())
+    exact.index_add_(0, idx_ct.long(), ct.double())
     torch.cuda.synchronize()
     scale = float(exact.abs().max().clamp(min=1e-6))
     rel = float((got.double() - exact).abs().max()) / scale
@@ -367,19 +382,27 @@ def _scatter_case(name: str, args) -> dict:
     del exact, plain, again
     ms = cuda_ms(lambda: ss.scatter_sorted(*args), 20)
     plain_ms = cuda_ms(lambda: ss.scatter_sorted_plain(*args), 3)
+    # index_add_ sums in its operand's type: bf16 ct is widened first,
+    # outside the timed call
+    ct32 = ct.float()
     library_ms = cuda_ms(
-        lambda: torch.zeros((ns, c), device=ct.device).index_add_(0, idx, ct),
+        lambda: torch.zeros((ns, c), device=ct.device).index_add_(
+            0, idx_ct, ct32),
         20,
     )
-    # bound: ct, idx, the support cells and the query prefix sums read
-    # once, grad written once; one f32 add per ct element
-    nbytes = 4 * (nqk * c + nqk + ns + qcs.numel() + ns * c)
-    b_ms = bound_ms(nbytes, nqk * c)
-    by = "bytes" if nbytes / HBM_BYTES_S >= nqk * c / F32_OPS_S else "operations"
-    log(f"[scatter] {name}: Ns={ns} rows={nqk} C={c} r={r}: max rel err "
-        f"{rel:.3e} vs exact, max |kernel - plain| {plain_err:.3e}, "
-        f"bit-equal relaunch {bitwise}; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, bound "
+    del ct32
+    # bound: ct (in its type), idx, the permutation, the support cells and
+    # the query prefix sums read once, grad written once; one f32 add per
+    # ct element
+    nbytes = (ct.element_size() * nqk * c
+              + 4 * (nqk + ns + qcs.numel() + ns * c)
+              + (0 if q_perm is None else 4 * q_perm.numel()))
+    b_ms, by = bound_ms(nbytes, nqk * c), bound_by(nbytes, nqk * c)
+    log(f"[scatter] {name}: Ns={ns} rows={nqk} C={c} r={r} ct "
+        f"{str(ct.dtype)[6:]}{' via q_perm' if q_perm is not None else ''}: "
+        f"max rel err {rel:.3e} vs exact, max |kernel - plain| "
+        f"{plain_err:.3e}, bit-equal relaunch {bitwise}; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms, bound "
         f"{b_ms:.4f} ms by {by}")
     # the plain version sums the same rows in f32 in another order
     if not rel < 1e-5 or not plain_err <= 1e-6 * scale or not bitwise:
@@ -388,9 +411,11 @@ def _scatter_case(name: str, args) -> dict:
             f"plain| {plain_err:.3e} (bound {1e-6 * scale:.3e}), bit-equal "
             f"relaunch {bitwise}"
         )
-    return {"case": name, "ns": ns, "rows": nqk, "c": c, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
-            "bound_by": by, "max_rel_err": rel, "max_abs_err_plain": plain_err}
+    return {"case": name, "ns": ns, "rows": nqk, "c": c,
+            "dtype": str(ct.dtype)[6:], "q_perm": q_perm is not None,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": b_ms, "bound_by": by, "max_rel_err": rel,
+            "max_abs_err_plain": plain_err}
 
 
 @contextlib.contextmanager
@@ -537,7 +562,8 @@ def phase_window(dev, pyr) -> dict:
 
 
 def _step_cases(captured, r0) -> list:
-    """The checks of phase 3 on the scatter inputs of one train step."""
+    """The checks of phase 3 on the scatter inputs of one train step: each
+    with ct widened to f32 and with ct as the step gave it (bf16)."""
     if len(captured) != SCATTERS_PER_STEP:
         raise AssertionError(
             f"expected {SCATTERS_PER_STEP} sorted scatters in a train step, "
@@ -546,20 +572,27 @@ def _step_cases(captured, r0) -> list:
     grids = [((r0 - 1) >> lvl) + 1 for lvl in range(3)]
     cases = []
     for args in captured:
-        ct, idx, s_ids, qcs, k, r = args
+        ct, idx, s_ids, qcs, k, r = args[:6]
         kind = "self" if ct.shape[0] == s_ids.shape[0] * k else "pool"
-        cases.append(_scatter_case(f"step L{grids.index(r)} {kind}", args))
-    log(f"[scatter] train step: {len(cases)} scatters, kernel "
-        f"{sum(c['ms'] for c in cases):.4f} ms, bound "
-        f"{sum(c['bound_ms'] for c in cases):.4f} ms, index_add_ "
-        f"{sum(c['library_ms'] for c in cases):.4f} ms")
+        name = f"step L{grids.index(r)} {kind}"
+        cases.append(_scatter_case(name, (ct.float(),) + tuple(args[1:])))
+        if ct.dtype != torch.float32:
+            cases.append(_scatter_case(f"{name} {str(ct.dtype)[6:]}", args))
+    for dtype in sorted({c["dtype"] for c in cases}):
+        some = [c for c in cases if c["dtype"] == dtype]
+        log(f"[scatter] train step, ct {dtype}: {len(some)} scatters, kernel "
+            f"{sum(c['ms'] for c in some):.4f} ms, bound "
+            f"{sum(c['bound_ms'] for c in some):.4f} ms, index_add_ "
+            f"{sum(c['library_ms'] for c in some):.4f} ms")
     return cases
 
 
 def _scatter_summary(bars, steps, launches, by_path) -> dict:
     """Kernel 2's entry of the ``kernels`` line: the numbers of the
     largest shape of a train step, every shape under ``shapes``."""
-    top = max(steps, key=lambda c: c["rows"] * c["c"])
+    f32 = [c for c in steps if c["dtype"] == "float32"]
+    low = [c for c in steps if c["dtype"] != "float32"]
+    top = max(f32, key=lambda c: c["rows"] * c["c"])
     cases = bars + steps
     return {
         "name": "scatter_sorted",
@@ -576,7 +609,10 @@ def _scatter_summary(bars, steps, launches, by_path) -> dict:
         "library_ms": top["library_ms"],
         "max_abs_err": max(c["max_abs_err_plain"] for c in cases),
         "max_rel_err": max(c["max_rel_err"] for c in cases),
-        "step_ms": sum(c["ms"] for c in steps),
+        "step_ms": sum(c["ms"] for c in f32),
+        "step_library_ms": sum(c["library_ms"] for c in f32),
+        "step_ms_bf16": sum(c["ms"] for c in low),
+        "step_library_ms_bf16": sum(c["library_ms"] for c in low),
         "shapes": cases,
     }
 
@@ -796,8 +832,10 @@ def _conv_case(name: str, x, w, b) -> dict:
     gap = (got.float() - plain.float()).abs()
     max_err = float(gap.max())
     scale = float(plain.float().abs().max())
-    checks = {"path": path == ("tensor_cores" if bf16 and cin % 16 == 0
-                               else "cuda_cores")}
+    want_path = ("tensor_cores" if bf16 and cin % 16 == 0 and wd % 2 == 0
+                 else "tensor_cores_3xtf32" if not bf16 and cin % 8 == 0
+                 and wd % 2 == 0 else "cuda_cores")
+    checks = {"path": path == want_path}
     if bf16:
         # one bf16 ulp, but never below the f32 bar: where the 27 x Cin
         # products cancel, the two f32 sums (in different orders) differ
@@ -811,8 +849,6 @@ def _conv_case(name: str, x, w, b) -> dict:
         log(f"[conv] {name}: {n_over} of {gap.numel()} elements more than "
             f"one bf16 ulp apart (|plain| at most {over_max:.3e} there)")
         del ulp, over
-        checks["bit-equal relaunch"] = torch.equal(
-            got, conv_cuda.conv3d_3x3(x, w))
     else:
         checks["within 1e-5 x max|plain|"] = max_err <= 1e-5 * scale
         lib = F.conv3d(x, w, padding=1)
@@ -820,7 +856,10 @@ def _conv_case(name: str, x, w, b) -> dict:
         lib_scale = max(1.0, float(lib.abs().max()))
         checks["within 2e-5 x max(1, max|F.conv3d|)"] = (
             lib_err <= 2e-5 * lib_scale)
+        log(f"[conv] {name}: max |kernel - F.conv3d| {lib_err:.3e} "
+            f"(max(1, max|F.conv3d|) {lib_scale:.3e})")
         del lib
+    checks["bit-equal relaunch"] = torch.equal(got, conv_cuda.conv3d_3x3(x, w))
     del gap, plain
     if b is not None:
         fused = conv_cuda.conv3d_3x3(x, w, b)
@@ -835,22 +874,26 @@ def _conv_case(name: str, x, w, b) -> dict:
     nbytes = es * (x.numel() + w.numel() + bsz * cout * d * h * wd
                    + (0 if b is None else b.numel()))
     ops = 2 * 27 * cin * cout * bsz * d * h * wd
-    rate = BF16_OPS_S if bf16 else F32_OPS_S
+    # f32 is held to 3xTF32 on the tensor cores, the least time for
+    # f32-accurate products; its bound on the CUDA cores is printed beside
+    rate = BF16_OPS_S if bf16 else F32_TC_OPS_S
     b_ms, by = bound_ms(nbytes, ops, rate), bound_by(nbytes, ops, rate)
+    cc_ms = None if bf16 else bound_ms(nbytes, ops, F32_OPS_S)
     log(f"[conv] {name} {str(x.dtype)[6:]} {cin}->{cout} at {(d, h, wd)} "
         f"on {path}: "
         f"max |kernel - plain| {max_err:.3e} (max |plain| {scale:.3e}), "
         + ", ".join(f"{k} {v}" for k, v in checks.items())
         + f"; kernel {ms:.4f} ms ({ops / ms / 1e9:.2f} TFLOP/s), plain "
         f"{plain_ms:.4f} ms, F.conv3d {library_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms by {by}")
+        f"{b_ms:.4f} ms by {by}"
+        + ("" if bf16 else f" (3xTF32; CUDA cores {cc_ms:.4f} ms)"))
     if not all(checks.values()):
         raise AssertionError(f"conv kernel {name}: {checks}")
     return {"case": name, "dtype": str(x.dtype)[6:], "path": path,
             "cin": cin, "cout": cout, "volume": [d, h, wd], "ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": b_ms, "bound_by": by, "max_abs_err": max_err,
-            "ops": ops, "bytes": nbytes}
+            "bound_ms": b_ms, "bound_by": by, "bound_ms_cuda_cores": cc_ms,
+            "max_abs_err": max_err, "ops": ops, "bytes": nbytes}
 
 
 def phase_conv(dev, serve_pipe, mods) -> dict:
@@ -888,16 +931,22 @@ def phase_conv(dev, serve_pipe, mods) -> dict:
                 cases.append(_conv_case(f"{tag} #{len(cases)}", xc, wc, bc))
             del xc, wc, bc
             torch.cuda.empty_cache()
+        bf16 = tag.startswith("bf16")
         sums = {k: sum(c[k] for c in cases)
                 for k in ("ms", "plain_ms", "library_ms", "bound_ms", "ops",
                           "bytes")}
-        rate = BF16_OPS_S if tag.startswith("bf16") else F32_OPS_S
+        rate = BF16_OPS_S if bf16 else F32_TC_OPS_S
         sums["bound_by"] = bound_by(sums["bytes"], sums["ops"], rate)
+        if not bf16:
+            sums["bound_ms_cuda_cores"] = sum(
+                c["bound_ms_cuda_cores"] for c in cases)
         log(f"[conv] {tag}, the 19 convs of one forward: kernel "
             f"{sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f} ms, "
             f"F.conv3d {sums['library_ms']:.4f} ms, bound "
             f"{sums['bound_ms']:.4f} ms by {sums['bound_by']} "
-            f"({sums['ops'] / 1e12:.3f} TFLOP)")
+            f"({sums['ops'] / 1e12:.3f} TFLOP)"
+            + ("" if bf16 else f"; 3xTF32 bound, CUDA-core bound "
+               f"{sums['bound_ms_cuda_cores']:.4f} ms"))
         out[tag] = {"sum": sums, "shapes": cases}
     del f32
     torch.cuda.empty_cache()

@@ -20,9 +20,9 @@
 // What bounds it on the H100: operations. The attention stage's convs do
 // 2 x 27 x Cin x Cout operations a voxel on 10^6-10^7 voxels, far above
 // the card's ratio of operations to bytes (the head, 128 -> 2, is the one
-// bound by bytes). Two designs, chosen by ops/conv_cuda.py:conv_path:
+// bound by bytes). Three designs, chosen by ops/conv_cuda.py:conv_path:
 //
-// Tensor cores (bf16, Cin % 16 == 0, W even): conv3x3_tc_kernel, an
+// Tensor cores, bf16 (Cin % 16 == 0, W even): conv3x3_tc_kernel, an
 // implicit GEMM. M is the output voxels, N is Cout, K is 27 taps x Cin.
 // One block owns one (b, z) plane x 16 rows x 32 columns (M = 512) x BN
 // output channels (BN = Cout padded to 8, at most 64; grid.z takes the
@@ -43,9 +43,10 @@
 // loads overlapping this tap's products) and the warpgroup issues
 // wgmma.mma_async m64nBNk16 (bf16 x bf16 -> f32) with A from those
 // registers and B through an unswizzled shared-memory descriptor (LBO
-// 128 bytes along K, SBO 256 along N), the f32 sums in registers. The sum is rounded once to bf16,
-// the bias added in bf16, and the tile goes through shared memory so that
-// the channels-first stores are vectors along x. No split-K and no
+// 128 bytes along K, SBO 256 along N), the f32 sums in registers. The sum
+// is rounded once to bf16, the bias added in bf16, and the tile goes
+// through shared memory so that the channels-first stores are vectors
+// along x. No split-K and no
 // atomics: two launches give the same bits. What holds it on the large
 // convs is staging the operands into shared memory, not the products: a
 // stage's 9 taps of weights (BN x 16 x 9) weigh as much as its input
@@ -55,7 +56,44 @@
 // output voxels, which halves the weight bytes staged a voxel against
 // 256.
 //
-// CUDA cores (f32, the init conv with Cin = 4, odd W): conv3x3_kernel.
+// Tensor cores, f32 (Cin % 8 == 0, W even): conv3x3_xf_kernel, the same
+// implicit GEMM with split-TF32 (3xTF32) products. One TF32 product keeps
+// 11 significant bits and misses the f32 bar; so each operand is split as
+// hi = tf32(a) (cvt.rna: ties away from zero) and lo = tf32(a - hi), and
+// each product is a_lo b_hi + a_hi b_lo + a_hi b_hi (a_lo b_lo, ~2^-22
+// relative, is dropped), all on the tensor cores. A first small kernel
+// packs the weight and splits it into hi and lo once a call, laid out so
+// that each stage's 9 taps x BN x 8 weights are one contiguous block of
+// K-major 8 x 16-byte core matrices; A is split in registers as it is
+// read. A stage is 8 input channels of one input plane: the raw (channel,
+// row, x) tile by cp.async (4 or 2 floats a copy, zero fill outside the
+// volume) into a 3-stage ring, and the hi and lo weight blocks by two
+// bulk copies (cp.async.bulk) that one thread issues on the stage's
+// mbarrier. The weights are 3/4 of a stage's bytes: staged by ~4.5
+// cp.async a thread they held 128 -> 64 at 9.7 ms on an H100, as bulk
+// copies 6.9 ms. No transpose: a lane's A elements
+// (voxel g, g + 8; channel t, t + 4 of mma.m16n8k8's fragment) are scalar
+// shared-memory reads at a one-float dx shift, and the channel stride (8
+// mod 32 words) keeps a warp's 32 reads on 32 banks. A block owns 8 rows x
+// 32 columns x BN = Cout rounded up to 8 (at most 64: grid.z takes the
+// rest); each warpgroup issues wgmma.mma_async m64nBNk8 (tf32 x tf32 ->
+// f32) with A from registers and B through a shared-memory descriptor.
+// On an H100 the 64 -> 64 and 128 -> 64 window convs ran ~1.27x faster
+// with N = 64 than with two N = 32 tiles, so BN = 64 takes one m64 tile a
+// warpgroup (512 threads, 1 block an SM); N <= 16 (the head,
+// the L0 blocks) takes two m64 tiles a warpgroup in 256-thread blocks, two
+// an SM. The tensor cores' own f32 accumulation truncates: summed over all
+// Cin x 27 / 8 steps into one register it reached ~1e-5 of max |out|, so
+// each stage's 27 products start from zero and are added to the running
+// sum with one round-to-nearest f32 add (~1e-6 then). The deep convs,
+// with fewer output tiles than 2 an SM, split their Cin chunks into runs
+// (ops/conv_cuda.py:conv_splits) summed into an f32 scratch that a second
+// kernel adds in run order: deterministic, no atomics; the bias follows
+// the sum. Every launch gives the same bits. The bound held to is 3 x
+// operations / 495 TFLOP/s (dense TF32), not the CUDA cores' 67 TFLOP/s:
+// this is the least time the card can take for f32-accurate products.
+//
+// CUDA cores (the init conv with Cin = 4, odd W): conv3x3_kernel.
 // One block owns one (b, z) output plane x TY rows x 32 columns x TC
 // output channels. Per chunk of 8 input channels it stages the haloed
 // input (3 x (TY + 2) x 34, as f32) and the chunk's 27 x TC weights in
@@ -64,9 +102,7 @@
 // (dz, dx) tap column (consecutive lanes, consecutive words: no bank
 // conflicts) and the RC weights of a tap as one broadcast vector load, and
 // does 4 x RC fused multiply-adds per weight vector. The sum runs over
-// (channel, dz, dx, dy) in that order; the output is written once. f32
-// stays here: TF32 products would miss the f32 bar, so its bound is the
-// CUDA cores' 67 TFLOP/s.
+// (channel, dz, dx, dy) in that order; the output is written once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -712,6 +748,469 @@ int dispatch_tc(const void* x, const void* wp, const void* bias, void* out,
                             stream);
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core design (f32, split TF32)
+
+constexpr int kXfCK = 8;              // input channels a stage (one k8)
+constexpr int kXfStages = 3;          // cp.async ring depth
+constexpr int kXfTY = 8;              // output rows a block
+constexpr int kXfRawX = kTcTX + 8;    // raw row: 32 + 2 vec floats, vec <= 4
+
+// A block owns TY output rows x 32 columns x BN output channels (Cout
+// past BN takes more column tiles, grid.z). Each warpgroup owns MT m64
+// tiles of two rows each. A staged channel is (TY + 2) rows x 40 floats,
+// padded to 8 mod 32 words, so that a warp's A fragment (4 channels x 8
+// voxels) hits 32 distinct banks.
+template <int BN, int TY, int MT>
+struct XfTile {
+  static constexpr int kThreads = TY / (2 * MT) * 128;  // warpgroups x 128
+  static constexpr int kMinBlocks = kThreads <= 256 ? 2 : 1;
+  static constexpr int kRows = TY + 2;                  // staged rows
+  static constexpr int kRawCh = ((kRows * kXfRawX + 23) / 32) * 32 + 8;
+  static constexpr int kRaw = kXfCK * kRawCh;           // raw floats a stage
+  static constexpr int kW = 9 * BN * kXfCK;             // hi (or lo) floats
+  static constexpr size_t kSmem =
+      sizeof(float) * kXfStages * (kRaw + 2 * kW);
+  static_assert(BN % 8 == 0 && BN <= 64 && TY % (2 * MT) == 0, "tile");
+  static_assert(kRawCh >= kRows * kXfRawX && kRawCh % 32 == 8, "stride");
+};
+
+// f32 -> (hi, lo) TF32 operands: hi = v rounded to TF32 (ties away from
+// zero), lo = the rest rounded the same way; hi + lo = v within 2^-22 |v|
+__device__ __forceinline__ void split_tf32(float v, unsigned& hi,
+                                           unsigned& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(v));
+  const float rest = v - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+}
+
+// D (64 x N, f32, registers) += A (64 x 8 tf32, registers: each warp of
+// the warpgroup its 16 rows, as mma.m16n8k8's A) x B (8 x N tf32, shared
+// memory through ``desc``, K-major)
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
+                                           const unsigned (&a)[4],
+                                           unsigned long long desc);
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<8>(float (&d)[4],
+                                              const unsigned (&a)[4],
+                                              unsigned long long desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<16>(float (&d)[8],
+                                               const unsigned (&a)[4],
+                                               unsigned long long desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16],
+                                               const unsigned (&a)[4],
+                                               unsigned long long desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32],
+                                               const unsigned (&a)[4],
+                                               unsigned long long desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// float offset of (row n, 4-float half h) in a K-major tf32 B tile of 8 x
+// 16-byte core matrices, n-group major: core matrix (n / 8, h) at ((n / 8)
+// * 2 + h) * 32 floats, so the K-adjacent one is 128 bytes on and the
+// N-adjacent one 256 bytes (the descriptor's LBO and SBO)
+__device__ __forceinline__ int bw_core(int n, int h) {
+  return (((n >> 3) * 2 + h) << 5) + ((n & 7) << 2);
+}
+
+// mbarrier and bulk-copy helpers: one thread asks for a stage's weights
+// as two contiguous bulk copies whose bytes complete the stage's barrier
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// Issue the copies of a stage (chunk cc, input plane z + dz - 1): by all
+// threads, cp.async of 8 channels x rows y0 - 1 .. y0 + TY x columns x0 -
+// vec .. x0 + 31 + vec (zero fill outside the volume); by thread 0, the
+// stage's hi and lo weights (9 taps x BN x 8, already in core-matrix
+// order, one contiguous block each) as two bulk copies on ``bar``
+template <int BN, int TY, int MT, int VEC>
+__device__ __forceinline__ void xf_issue(float* raw, float* wsh, float* wsl,
+                                         unsigned long long* bar,
+                                         const float* xb, const float* wh,
+                                         const float* wl, int cc, int dz,
+                                         int z, int y0, int x0, int nt,
+                                         int n_tiles, int d, int h, int wd) {
+  using G = XfTile<BN, TY, MT>;
+  const int zz = z + dz - 1;
+  const bool zin = zz >= 0 && zz < d;
+  const long long plane = static_cast<long long>(h) * wd;
+  constexpr int kQ = kTcTX / VEC + 2;            // vectors a staged row
+  for (int i = threadIdx.x; i < kXfCK * G::kRows * kQ; i += G::kThreads) {
+    const int q = i % kQ;
+    const int r = (i / kQ) % G::kRows;
+    const int c = i / (kQ * G::kRows);
+    const int yy = y0 - 1 + r;
+    const int xs = x0 - VEC + q * VEC;
+    const bool in = zin && yy >= 0 && yy < h && xs >= 0 && xs < wd;
+    const float* src =
+        in ? xb + (static_cast<long long>(cc * kXfCK + c) * d + zz) * plane +
+                 static_cast<long long>(yy) * wd + xs
+           : xb;
+    cp_async<VEC * 4>(raw + c * G::kRawCh + r * kXfRawX + q * VEC, src, in);
+  }
+  if (threadIdx.x == 0) {
+    const long long w0 =
+        ((static_cast<long long>(cc) * 3 + dz) * n_tiles + nt) * G::kW;
+    mbar_expect_tx(bar, 2 * G::kW * sizeof(float));
+    bulk_copy(wsh, wh + w0, G::kW * sizeof(float), bar);
+    bulk_copy(wsl, wl + w0, G::kW * sizeof(float), bar);
+  }
+}
+
+template <int BN, int TY, int MT, int VEC>
+__global__ void __launch_bounds__(XfTile<BN, TY, MT>::kThreads,
+                                  XfTile<BN, TY, MT>::kMinBlocks)
+    conv3x3_xf_kernel(
+    const float* __restrict__ x,      // (B, Cin, D, H, W)
+    const float* __restrict__ wh,     // TF32 hi weights, conv3x3_xf_pack
+    const float* __restrict__ wl,     // the same, TF32 lo
+    const float* __restrict__ bias,   // (Cout,) or null
+    float* __restrict__ out,          // (B, Cout, D, H, W), or the
+                                      // (splits, B, Cout, D, H, W) partials
+    int cin, int cout, int d, int h, int wd, int x_tiles, int n_tiles,
+    int chunks_per_split, int split_sums) {
+  using G = XfTile<BN, TY, MT>;
+  constexpr int ACC = BN / 2;                 // f32 sums a thread, m64
+  constexpr int WSZ = G::kW;
+  extern __shared__ __align__(128) float xf_smem[];
+  float* raw = xf_smem;                                 // (stages, kRaw)
+  float* wsh = raw + kXfStages * G::kRaw;               // (stages, WSZ)
+  float* wsl = wsh + kXfStages * WSZ;                   // (stages, WSZ)
+
+  const int x0 = (blockIdx.x % x_tiles) * kTcTX;
+  const int y0 = (blockIdx.x / x_tiles) * TY;
+  const int b = blockIdx.y / d;
+  const int z = blockIdx.y % d;
+  const int nt = blockIdx.z % n_tiles;
+  const int n0 = nt * BN;
+  const int split = blockIdx.z / n_tiles;
+  const int c_begin = split * chunks_per_split;
+  const int n_chunks = min(cin / kXfCK - c_begin, chunks_per_split);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  __shared__ __align__(8) unsigned long long wbar[kXfStages];
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < kXfStages; ++k) mbar_init(&wbar[k]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // warpgroup warp / 4 owns rows 2 MT (warp / 4) .. + 2 MT - 1 as MT m64
+  // tiles of two rows; warp w of it gives each tile its 16 rows: row
+  // (w / 2), columns 16 (w % 2) + 0 .. 15
+  const int row_w = 2 * MT * (warp >> 2) + ((warp & 3) >> 1);
+  const int col_w = 16 * (warp & 1);
+  const long long plane = static_cast<long long>(h) * wd;
+  const long long vol = plane * d;
+  const float* xb = x + static_cast<long long>(b) * cin * vol;
+
+  float acc[MT][ACC];
+  float part[MT][ACC];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int e = 0; e < ACC; ++e) acc[i][e] = 0.0f;
+  }
+
+  const int n_stages = n_chunks * 3;
+#pragma unroll
+  for (int s = 0; s < kXfStages - 1; ++s) {
+    if (s < n_stages) {
+      xf_issue<BN, TY, MT, VEC>(raw + s * G::kRaw, wsh + s * WSZ,
+                                wsl + s * WSZ, &wbar[s], xb, wh, wl,
+                                c_begin + s / 3, s % 3, z, y0, x0, nt,
+                                n_tiles, d, h, wd);
+    }
+    cp_async_commit();
+  }
+
+  for (int s = 0; s < n_stages; ++s) {
+    cp_async_wait<kXfStages - 2>();
+    fence_proxy_async();
+    __syncthreads();     // stage s landed; stage s - 1 fully consumed
+    const int sn = s + kXfStages - 1;
+    if (sn < n_stages) {
+      const int slot = sn % kXfStages;
+      xf_issue<BN, TY, MT, VEC>(raw + slot * G::kRaw, wsh + slot * WSZ,
+                                wsl + slot * WSZ, &wbar[slot], xb, wh, wl,
+                                c_begin + sn / 3, sn % 3, z, y0, x0, nt,
+                                n_tiles, d, h, wd);
+    }
+    cp_async_commit();
+
+    const int slot = s % kXfStages;
+    mbar_wait(&wbar[slot], (s / kXfStages) & 1);   // the weights landed
+    const float* rs = raw + slot * G::kRaw + t * G::kRawCh +
+                      row_w * kXfRawX + col_w + g + VEC - 1;
+    // A fragments of a tap, split in registers: two sets (the next tap's
+    // loads overlap this tap's products) of (m64 tile, hi / lo, 4)
+    unsigned af[2][MT][2][4];
+    auto load_a = [&](int t9, unsigned (&dst)[MT][2][4]) {
+      const float* pa = rs + (t9 / 3) * kXfRawX + t9 % 3;
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const float* q = pa + 2 * i * kXfRawX;
+        split_tf32(q[0], dst[i][0][0], dst[i][1][0]);
+        split_tf32(q[8], dst[i][0][1], dst[i][1][1]);
+        split_tf32(q[4 * G::kRawCh], dst[i][0][2], dst[i][1][2]);
+        split_tf32(q[4 * G::kRawCh + 8], dst[i][0][3], dst[i][1][3]);
+      }
+    };
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+#pragma unroll
+      for (int e = 0; e < ACC; ++e) part[i][e] = 0.0f;
+    }
+    load_a(0, af[0]);
+#pragma unroll
+    for (int t9 = 0; t9 < 9; ++t9) {
+      const unsigned long long dh =
+          wgmma_desc(wsh + slot * WSZ + t9 * BN * kXfCK, 128, 256);
+      const unsigned long long dl =
+          wgmma_desc(wsl + slot * WSZ + t9 * BN * kXfCK, 128, 256);
+      wgmma_fence();
+      // the stage's products from zero (then one round-to-nearest add):
+      // the small ones first, a_lo b_lo dropped
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        wgmma_tf32<BN>(part[i], af[t9 & 1][i][1], dh);
+        wgmma_tf32<BN>(part[i], af[t9 & 1][i][0], dl);
+        wgmma_tf32<BN>(part[i], af[t9 & 1][i][0], dh);
+      }
+      wgmma_commit();
+      if (t9 + 1 < 9) {
+        wgmma_wait<1>();         // the other register set is free again
+        load_a(t9 + 1, af[(t9 + 1) & 1]);
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+#pragma unroll
+      for (int e = 0; e < ACC; ++e) acc[i][e] += part[i][e];
+    }
+  }
+  cp_async_wait<0>();
+
+  float* dst = out;
+  if (split_sums) {
+    dst += static_cast<long long>(split) * (gridDim.y / d) * cout * vol;
+  }
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int yy = y0 + row_w + 2 * i;
+    if (yy >= h) continue;
+#pragma unroll
+    for (int e = 0; e < ACC; ++e) {
+      const int xx = x0 + col_w + g + ((e >> 1) & 1) * 8;
+      const int co = n0 + (e >> 2) * 8 + 2 * t + (e & 1);
+      if (co >= cout || xx >= wd) continue;
+      float o = acc[i][e];
+      if (!split_sums && bias != nullptr) o = o + bias[co];
+      dst[(static_cast<long long>(b) * cout + co) * vol + z * plane +
+          static_cast<long long>(yy) * wd + xx] = o;
+    }
+  }
+}
+
+// The f32 design's B operand, once a call: w (Cout, Cin, 3, 3, 3) split
+// into its TF32 hi and lo parts, each laid out as (Cin / 8, 3 dz, column
+// tile, 9 (dy, dx) taps, BN x 8) with the BN x 8 block in core-matrix
+// order (bw_core), so that a stage's weights are one contiguous block;
+// zeros for output channels >= Cout
+template <int BN>
+__global__ void conv3x3_xf_pack(const float* __restrict__ w,
+                                float* __restrict__ wh,
+                                float* __restrict__ wl, int cin, int cout,
+                                int n_tiles) {
+  const long long n = static_cast<long long>(cin) * 27 * n_tiles * BN;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int e = static_cast<int>(i % (BN * kXfCK));   // in the block
+    const long long blk = i / (BN * kXfCK);
+    const int t9 = static_cast<int>(blk % 9);
+    const int nt = static_cast<int>((blk / 9) % n_tiles);
+    const int dz = static_cast<int>((blk / (9 * n_tiles)) % 3);
+    const int cc = static_cast<int>(blk / (27 * n_tiles));
+    const int core = e >> 5;                 // (n / 8) * 2 + k / 4
+    const int n_in = ((core >> 1) << 3) + ((e & 31) >> 2);
+    const int k = ((core & 1) << 2) + (e & 3);
+    const int o = nt * BN + n_in;
+    const int c = cc * kXfCK + k;
+    const float v =
+        o < cout ? w[(static_cast<long long>(o) * cin + c) * 27 + dz * 9 + t9]
+                 : 0.0f;
+    unsigned hi, lo;
+    split_tf32(v, hi, lo);
+    wh[i] = __uint_as_float(hi);
+    wl[i] = __uint_as_float(lo);
+  }
+}
+
+// out[i] = sum of the ``splits`` partials in split order, then the bias
+__global__ void conv3x3_split_sum(const float* __restrict__ partial,
+                                  const float* __restrict__ bias,
+                                  float* __restrict__ out, long long n,
+                                  int splits, int cout, long long vol) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    float s = partial[i];
+    for (int k = 1; k < splits; ++k) s += partial[k * n + i];
+    if (bias != nullptr) s = s + bias[(i / vol) % cout];
+    out[i] = s;
+  }
+}
+
+template <int BN, int MT, int VEC>
+int launch_xf(const float* x, const float* w, float* wsplit,
+              const float* bias, float* out, float* partial, int b, int cin,
+              int cout, int np, int d, int h, int wd, int splits,
+              cudaStream_t stream) {
+  using G = XfTile<BN, kXfTY, MT>;
+  const int n_tiles = (np + BN - 1) / BN;
+  const long long nw = static_cast<long long>(cin) * 27 * n_tiles * BN;
+  float* wh = wsplit;
+  float* wl = wsplit + nw;
+  conv3x3_xf_pack<BN><<<static_cast<int>((nw + 255) / 256), 256, 0,
+                        stream>>>(w, wh, wl, cin, cout, n_tiles);
+  auto kernel = conv3x3_xf_kernel<BN, kXfTY, MT, VEC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(G::kSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int x_tiles = (wd + kTcTX - 1) / kTcTX;
+  const int y_tiles = (h + kXfTY - 1) / kXfTY;
+  const int chunks = cin / kXfCK;
+  const int per = (chunks + splits - 1) / splits;
+  const dim3 grid(x_tiles * y_tiles, b * d, n_tiles * splits);
+  kernel<<<grid, G::kThreads, G::kSmem, stream>>>(
+      x, wh, wl, bias, splits > 1 ? partial : out, cin, cout, d, h, wd,
+      x_tiles, n_tiles, per, splits > 1 ? 1 : 0);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long vol = static_cast<long long>(d) * h * wd;
+  const long long n = static_cast<long long>(b) * cout * vol;
+  const long long blocks = (n + 255) / 256;
+  conv3x3_split_sum<<<static_cast<int>(blocks < 4096 ? blocks : 4096), 256,
+                      0, stream>>>(partial, bias, out, n, splits, cout, vol);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// N = 8 or 16 (the head, the L0 blocks) with two m64 tiles a
+// warpgroup, two 256-thread blocks an SM; N = 32 or 64 with one, one
+// 512-thread block an SM (the N = 64 products run at the higher rate)
+template <int VEC>
+int dispatch_xf(const float* x, const float* w, float* wsplit,
+                const float* bias, float* out, float* partial, int b,
+                int cin, int cout, int np, int d, int h, int wd, int splits,
+                cudaStream_t stream) {
+  if (np <= 8) {
+    return launch_xf<8, 2, VEC>(x, w, wsplit, bias, out, partial, b, cin,
+                                cout, np, d, h, wd, splits, stream);
+  }
+  if (np <= 16) {
+    return launch_xf<16, 2, VEC>(x, w, wsplit, bias, out, partial, b, cin,
+                                 cout, np, d, h, wd, splits, stream);
+  }
+  if (np <= 32) {
+    return launch_xf<32, 1, VEC>(x, w, wsplit, bias, out, partial, b, cin,
+                                 cout, np, d, h, wd, splits, stream);
+  }
+  return launch_xf<64, 1, VEC>(x, w, wsplit, bias, out, partial, b, cin,
+                               cout, np, d, h, wd, splits, stream);
+}
+
 }  // namespace
 
 // Plain C entry point, loaded with ctypes (ops/conv_cuda.py). ``dtype`` is
@@ -770,6 +1269,55 @@ extern "C" int conv3x3_tc_launch(const void* x, const void* wp,
   }
   if (align % 4 == 0) {
     return dispatch_tc<2>(x, wp, bias, out, b, cin, cout, np, d, h, wd, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Plain C entry point of the f32 tensor-core design (split TF32), loaded
+// with ctypes (ops/conv_cuda.py). f32 x (B, Cin, D, H, W), w (Cout, Cin,
+// 3, 3, 3), bias (Cout,) or null, out (B, Cout, D, H, W); ``wsplit`` is
+// scratch of 2 x Cin x 27 x Np floats, 16-byte aligned, where a first
+// small kernel packs w split into its TF32 hi (first half) and lo parts
+// (conv3x3_xf_pack; Np = np rounded up to a multiple of the column tile
+// BN, which is np itself up to 32 and 64 above; np = Cout rounded up to 8).
+// Takes Cin % 8 == 0 and even W. ``splits`` > 1 splits the Cin chunks into
+// that many contiguous runs, each block summing one run into ``partial``
+// (splits, B, Cout, D, H, W) f32, and a last kernel sums the runs in order
+// into out; with splits == 1 ``partial`` is not read. Launches on
+// ``stream`` and does not synchronise. Returns cudaGetLastError() after
+// the launches (0 on success), or cudaErrorInvalidValue for arguments the
+// kernels do not take.
+extern "C" int conv3x3_xf_launch(const void* x, const void* w, void* wsplit,
+                                 const void* bias, void* out, void* partial,
+                                 int b, int cin, int cout, int np, int d,
+                                 int h, int wd, int splits, void* stream) {
+  const int chunks = cin / kXfCK;
+  if (b < 1 || cin < kXfCK || cin % kXfCK != 0 || cout < 1 || np % 8 != 0 ||
+      np < cout || np > cout + 7 || d < 1 || h < 1 || wd < 2 ||
+      wd % 2 != 0 || static_cast<long long>(b) * d > 65535 || splits < 1 ||
+      splits > chunks ||
+      (splits - 1) * ((chunks + splits - 1) / splits) >= chunks ||
+      (splits > 1 && partial == nullptr) ||
+      static_cast<long long>((np + 7) / 8) * splits > 65535 ||
+      reinterpret_cast<unsigned long long>(wsplit) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xv = static_cast<const float*>(x);
+  const float* wv = static_cast<const float*>(w);
+  float* sv = static_cast<float*>(wsplit);
+  const float* bv = static_cast<const float*>(bias);
+  float* ov = static_cast<float*>(out);
+  float* pv = static_cast<float*>(partial);
+  // floats a copy: 4 where W and x's alignment allow, else 2
+  const unsigned long long align = reinterpret_cast<unsigned long long>(x);
+  if (wd % 4 == 0 && align % 16 == 0) {
+    return dispatch_xf<4>(xv, wv, sv, bv, ov, pv, b, cin, cout, np, d, h,
+                          wd, splits, st);
+  }
+  if (align % 8 == 0) {
+    return dispatch_xf<2>(xv, wv, sv, bv, ov, pv, b, cin, cout, np, d, h,
+                          wd, splits, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -13,28 +13,43 @@ channels-first layout: x (B, Cin, D, H, W), w (Cout, Cin, 3, 3, 3).
   casts once. It is the function the kernel computes, not ``F.conv3d``.
   The CPU path and the comparison on the card use it.
 * ``conv3d_3x3`` is the wrapper: the plain version for CPU tensors; for
-  CUDA tensors it launches one of the two kernels of ``csrc/conv3x3.cu``,
+  CUDA tensors it launches one of the three designs of ``csrc/conv3x3.cu``,
   as ``conv_path`` chooses, or raises. ``LAUNCHES`` counts its launches.
 * ``conv_path(dtype, cin, cout, wd)``: ``"tensor_cores"`` for bf16 with
   Cin % 16 == 0 and an even W (every bf16 conv of the saliency net but
-  the 4 -> 16 init conv), ``"cuda_cores"`` otherwise (f32, the init conv).
-* ``pack_weight(w)``: the tensor-core path's B operand, (Cin / 16, 27,
-  Cout rounded up to 8, 16), K-major, with ``wp[c // 16, dz * 9 + dy * 3
-  + dx, o, c % 16] = w[o, c, dz, dy, dx]`` and zeros for o >= Cout. Plain
-  torch, once a call: layout preparation (0.4 MB for 128 -> 64, 3.5 MB
-  for 256 -> 256), not the conv.
+  the 4 -> 16 init conv), ``"tensor_cores_3xtf32"`` for f32 with Cin % 8
+  == 0 and an even W (every f32 conv but the init conv), ``"cuda_cores"``
+  otherwise.
+* ``pack_weight(w)``: the bf16 tensor-core path's B operand, (Cin / 16,
+  27, Cout rounded up to 8, 16), K-major, with ``wp[c // 16, dz * 9 + dy
+  * 3 + dx, o, c % 16] = w[o, c, dz, dy, dx]`` and zeros for o >= Cout.
+  Plain torch, once a call: layout preparation (0.4 MB for 128 -> 64,
+  3.5 MB for 256 -> 256), not the conv.
+* ``pack_weight_xf(w)`` and ``split_tf32(x)``: the plain forms of the
+  3xTF32 kernel's own weight packing (a small kernel of the same launch
+  writes it, split, into scratch that the wrapper allocates: one
+  contiguous block of core matrices a stage, so that one thread stages
+  it by a bulk copy) and of its operand split (f32 -> (hi, lo) as
+  ``cvt.rna.tf32.f32`` rounds, by int32 bit operations; the kernel splits
+  the weights when it packs them and the activations in registers).
+* ``conv_splits(...)``: how many runs of input channels the 3xTF32 kernel
+  splits a deep conv into (summed in a fixed order by a second kernel).
 
 What bounds it on the H100 is operations (2 x 27 x Cin x Cout a voxel,
 far above the card's ratio of operations to bytes). The first port ran
-every conv as f32 FMAs on the CUDA cores, 36x over its bf16 bound; bf16
-now runs as an implicit GEMM on the tensor cores (wgmma m64nNk16 with A
-from registers and B from shared memory, f32 sums in registers, a
-3-stage cp.async ring, each stage transposed in shared memory so that
-the dx = +-1 taps stay aligned for ldmatrix; the source note has the
-design). f32 stays on the CUDA cores: TF32 would miss the f32 bar. An
+every conv as f32 FMAs on the CUDA cores, 36x over its bf16 bound; both
+types now run as implicit GEMMs on the tensor cores (wgmma with A from
+registers and B from shared memory, f32 sums in registers, a 3-stage
+cp.async ring; the source note has the designs). bf16 stages 16 channels
+and transposes each stage for ldmatrix; f32 stages 8 and computes each
+product as three TF32 products of split operands (3xTF32: hi x hi, hi x
+lo, lo x hi): one TF32 product keeps 11 significant bits and misses the
+2e-5 f32 bar. f32's least time is then 3 x operations over the card's
+495 TFLOP/s of dense TF32, below the CUDA cores' 67 TFLOP/s of f32. An
 optional bias is added after the rounding, in the input's type (the
-reference's ``y + bias``); both kernels fuse that add in the same order.
-The library is built and loaded by ``ops/cuda_build.py`` at first use.
+reference's ``y + bias``); every design fuses that add in the same
+order. The library is built and loaded by ``ops/cuda_build.py`` at first
+use.
 """
 from __future__ import annotations
 
@@ -51,27 +66,34 @@ LAUNCHES = 0
 
 SOURCE = cuda_build.CSRC / "conv3x3.cu"
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_XF_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TC_CHANNELS = 16         # input channels a tensor-core stage (one k16)
+TC_CHANNELS = 16         # input channels a bf16 tensor-core stage (one k16)
+XF_CHANNELS = 8          # input channels a 3xTF32 stage (one k8)
+SPLIT_BLOCKS = 264       # blocks (2 an SM) below which 3xTF32 splits Cin
 
 
 def load_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library, with both
-    entry points typed (the same argument types: four pointers, seven
-    ints, the stream)."""
+    """Build (once per source hash) and load the kernel library, with its
+    three entry points typed (CUDA cores, bf16 and f32 tensor cores)."""
     lib = cuda_build.load(SOURCE, "conv3x3_launch", _ARGTYPES)
-    fn = lib.conv3x3_tc_launch
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    for name, types in (("conv3x3_tc_launch", _ARGTYPES),
+                        ("conv3x3_xf_launch", _XF_ARGTYPES)):
+        fn = getattr(lib, name)
+        fn.argtypes = types
+        fn.restype = ctypes.c_int
     return lib
 
 
 def conv_path(dtype: torch.dtype, cin: int, cout: int, wd: int) -> str:
     """Which kernel takes a conv on the card: ``"tensor_cores"`` for bf16
-    with Cin a multiple of 16 and an even W (any Cout: N is padded to 8),
-    ``"cuda_cores"`` for the rest (f32; Cin = 4; odd W)."""
-    if dtype == torch.bfloat16 and cin % TC_CHANNELS == 0 and wd % 2 == 0:
+    with Cin a multiple of 16, ``"tensor_cores_3xtf32"`` for f32 with Cin
+    a multiple of 8, both with an even W (any Cout: N is padded to 8);
+    ``"cuda_cores"`` for the rest (Cin = 4; odd W)."""
+    if wd % 2 == 0 and dtype == torch.bfloat16 and cin % TC_CHANNELS == 0:
         return "tensor_cores"
+    if wd % 2 == 0 and dtype == torch.float32 and cin % XF_CHANNELS == 0:
+        return "tensor_cores_3xtf32"
     return "cuda_cores"
 
 
@@ -86,6 +108,67 @@ def pack_weight(w: torch.Tensor) -> torch.Tensor:
     wp[:, :, :cout] = w.reshape(
         cout, cin // TC_CHANNELS, TC_CHANNELS, 27).permute(1, 3, 0, 2)
     return wp
+
+
+def pack_weight_xf(w: torch.Tensor) -> torch.Tensor:
+    """The 3xTF32 kernel's weight layout, before its TF32 split (its
+    packing kernel's plain form): (Cout, Cin, 3, 3, 3) -> (Cin / 8, 3, T,
+    9, BN * 8), BN = ``xf_tile_n(Cout)``, T = ceil(Cout / BN): one
+    contiguous block of 9 (dy, dx) taps x BN x 8 a stage (8 input
+    channels, one dz) and column tile, each BN x 8 block in 8 x 16-byte
+    core-matrix order, element (n, k) at ((n // 8) * 2 + k // 4) * 32 + (n
+    % 8) * 4 + k % 4; zeros for output channels >= Cout."""
+    cout, cin = w.shape[:2]
+    bn = xf_tile_n(cout)
+    nt = -(-cout // bn)
+    ck = XF_CHANNELS
+    wl = torch.zeros((cin // ck, 27, nt * bn, ck), dtype=w.dtype,
+                     device=w.device)
+    wl[:, :, :cout] = w.reshape(cout, cin // ck, ck, 27).permute(1, 3, 0, 2)
+    # (chunk, dz, tap, tile, n // 8, n % 8, k // 4, k % 4), then the
+    # stage's taps and core matrices innermost
+    v = wl.reshape(cin // ck, 3, 9, nt, bn // 8, 8, 2, 4)
+    return v.permute(0, 1, 3, 2, 4, 6, 5, 7).reshape(
+        cin // ck, 3, nt, 9, bn * ck)
+
+
+def split_tf32(x: torch.Tensor):
+    """f32 -> (hi, lo) f32 tensors as the 3xTF32 kernel splits each
+    operand: ``hi`` is x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds
+    (10 mantissa bits, ties away from zero, the low 13 bits zero), ``lo``
+    is ``x - hi`` rounded the same way. hi + lo = x within 2^-22 |x|."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32).long() & 0xFFFFFFFF
+        mag = bits & 0x7FFFFFFF
+        keep = mag >= 0x7F800000                     # inf and nan
+        mag = torch.where(keep, mag, (mag + 0x1000) & ~0x1FFF)
+        bits = (bits & 0x80000000) | mag
+        return torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(
+            torch.int32).view(torch.float32)
+
+    hi = rna(x.float())
+    return hi, rna(x.float() - hi)
+
+
+def xf_tile_n(cout: int) -> int:
+    """The 3xTF32 kernel's column tile BN: 8, 16 or 32, the least that
+    holds Cout, up to 32 output channels; 64 above."""
+    np_ = -(-cout // 8) * 8
+    return next(n for n in (8, 16, 32, 64) if np_ <= n or n == 64)
+
+
+def conv_splits(b: int, cin: int, cout: int, d: int, h: int, wd: int) -> int:
+    """Runs of Cin chunks the 3xTF32 kernel splits a conv into: 1 when its
+    output tiles (8 rows x 32 columns x ``xf_tile_n(cout)`` channels)
+    already give ``SPLIT_BLOCKS`` blocks, else enough runs (whole chunks
+    of 8 channels, none empty) to come near it."""
+    bn = xf_tile_n(cout)
+    tiles = (-(-wd // 32)) * (-(-h // 8)) * b * d * (-(-cout // bn))
+    chunks = cin // XF_CHANNELS
+    if tiles >= SPLIT_BLOCKS or chunks < 2:
+        return 1
+    per = -(-chunks // min(chunks, -(-SPLIT_BLOCKS // tiles)))
+    return -(-chunks // per)
 
 
 def conv3d_3x3_plain(
@@ -158,8 +241,25 @@ def conv3d_3x3(
     lib = load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     bias_ptr = None if bias is None else bias.data_ptr()
+    path = conv_path(x.dtype, cin, cout, wd)
     with torch.cuda.device(dev):
-        if conv_path(x.dtype, cin, cout, wd) == "tensor_cores":
+        if path == "tensor_cores_3xtf32":
+            # scratch for the packed hi and lo weights (whole column
+            # tiles), and for the runs' partial sums of a split conv
+            np_ = -(-cout // 8) * 8
+            bn = xf_tile_n(cout)
+            wsplit = torch.empty((2, cin, 27, -(-np_ // bn) * bn),
+                                 dtype=torch.float32, device=dev)
+            splits = conv_splits(b, cin, cout, d, h, wd)
+            partial = (None if splits == 1 else torch.empty(
+                (splits,) + tuple(out.shape), dtype=torch.float32, device=dev))
+            rc = lib.conv3x3_xf_launch(
+                x.data_ptr(), w.data_ptr(), wsplit.data_ptr(), bias_ptr,
+                out.data_ptr(),
+                None if partial is None else partial.data_ptr(),
+                b, cin, cout, np_, d, h, wd, splits, stream,
+            )
+        elif path == "tensor_cores":
             wp = pack_weight(w)
             rc = lib.conv3x3_tc_launch(
                 x.data_ptr(), wp.data_ptr(), bias_ptr, out.data_ptr(),

@@ -4,29 +4,34 @@
 The gradient of a K-neighbour row gather ``table[idx]`` is a scatter-add
 of the (Nq, K, C) cotangents into (Ns, C) rows. When ``idx`` came from
 the pyramid's cell-window search, every neighbour lies in the 27 cells
-around its query, so a tile of consecutive sorted support rows can only
-receive rows from 9 contiguous ranges of the cell-sorted queries, read
-from the query cell prefix sums. ``scatter_sorted`` sums along that plan:
+around its query, so a tile of ``S_TILE`` consecutive sorted support rows
+can only receive rows from 9 contiguous ranges of the cell-sorted
+queries, read from the query cell prefix sums. ``scatter_sorted`` sums
+along that plan, reading ct in its own type (f32 or bf16) and summing in
+f32:
 
 * ``scatter_sorted_plain`` in plain torch, tile by tile over the same
-  ranges (f32). The CPU path and the comparison on the card use it.
+  ranges. The CPU path and the comparison on the card use it.
 * ``scatter_sorted`` is the wrapper: the plain version for CPU tensors;
   for CUDA tensors it launches the kernel of ``csrc/scatter_sorted.cu``
-  (exact, no atomics, bitwise deterministic) or raises. ``LAUNCHES``
-  counts its kernel launches.
+  (exact, no atomics, bitwise deterministic: each tile lists its hits,
+  sorts them by row and sums each row in ascending flat row) or raises.
+  ``LAUNCHES`` counts its kernel launches.
 
 ``scatter_add_sorted`` recomputes the search's cells from the level-0
-grid and re-sorts the queries of a pool gather (``query_sorted=False``);
-``sorted_gather`` is the row gather whose backward runs it above the size
-gate and ``index_add_`` below it, as the reference runs XLA's scatter
-there. Indices that did not come from the windowed search (levels at or
-below ``GRID_THRESHOLD`` points, searched brute force) may lie outside
-the 27 cells: the gate keeps them off the planned path.
+grid; for a pool gather (``query_sorted=False``) it sorts the queries'
+cells and indices and passes the permutation, through which the kernel
+reads ct in place (no sorted copy of ct). ``sorted_gather`` is the row
+gather whose backward runs it above the size gate and ``index_add_``
+below it, as the reference runs XLA's scatter there. Indices that did
+not come from the windowed search (levels at or below ``GRID_THRESHOLD``
+points, searched brute force) may lie outside the 27 cells: the gate
+keeps them off the planned path.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -38,13 +43,15 @@ from .pyramid import GRID_THRESHOLD
 # kernel launches made by ``scatter_sorted`` in this process
 LAUNCHES = 0
 
-S_TILE = 64              # support rows a tile (the kernel's kTile)
+S_TILE = 128             # support rows a tile (the kernel's kTile, the
+                         # reference's S_TILE)
 # below this many flat rows the backward takes index_add_; a test may
 # lower it, but only for indices from the windowed search
 MIN_ROWS = 262_144
 PLAIN_ROWS = 1 << 24     # scanned flat rows a pass of the plain version
 SOURCE = cuda_build.CSRC / "scatter_sorted.cu"
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def load_library() -> ctypes.CDLL:
@@ -112,17 +119,20 @@ def window_passes(starts: torch.Tensor, length: torch.Tensor):
 
 
 def scatter_sorted_plain(
-    ct: torch.Tensor,            # (Nq * K, C) f32 rows, cell-sorted queries
+    ct: torch.Tensor,            # (Nq * K, C) f32 or bf16 rows
     idx: torch.Tensor,           # (Nq * K,) int32 sorted-support rows
     s_ids: torch.Tensor,         # (Ns,) int32 sorted support cell ids
     q_cell_start: torch.Tensor,  # (r^3 + 1,) int32 query prefix sums
     k: int,
     r: int,
+    q_perm: Optional[torch.Tensor] = None,  # (Nq,) int32 or None
 ) -> torch.Tensor:
     """The kernel's function in plain torch: (Ns, C) f32. Every tile
     lists the flat rows of its ranges and keeps those whose index falls
     in the tile, so a contribution outside the plan is dropped here as it
-    is in the kernel."""
+    is in the kernel. Flat row p of the cell-sorted queries reads ct row
+    p, or ``q_perm[p // k] * k + p % k`` when ``q_perm`` is given (ct in
+    the queries' own order)."""
     ns, c = s_ids.shape[0], ct.shape[1]
     out = torch.zeros((ns, c), dtype=torch.float32, device=ct.device)
     start, end = _windows(s_ids, q_cell_start, k, r)
@@ -130,7 +140,10 @@ def scatter_sorted_plain(
         j = idx[p].long()
         lo = win // 9 * S_TILE                          # the window's tile
         keep = (j >= lo) & (j < lo + S_TILE)
-        out.index_add_(0, j[keep], ct[p[keep]].float())
+        p = p[keep]
+        if q_perm is not None:                    # ct in the queries' order
+            p = q_perm[p // k].long() * k + p % k
+        out.index_add_(0, j[keep], ct[p].float())
     return out
 
 
@@ -141,15 +154,18 @@ def scatter_sorted(
     q_cell_start: torch.Tensor,
     k: int,
     r: int,
+    q_perm: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Sorted-contract scatter-add (see the module docstring): (Ns, C) f32.
+    """Sorted-contract scatter-add (see the module docstring): (Ns, C) f32
+    from f32 or bf16 ct.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel;
     anything the kernel does not take raises."""
     global LAUNCHES
-    tensors = (ct, idx, s_ids, q_cell_start)
+    tensors = (ct, idx, s_ids, q_cell_start) + (
+        () if q_perm is None else (q_perm,))
     if all(t.device.type == "cpu" for t in tensors):
-        return scatter_sorted_plain(ct, idx, s_ids, q_cell_start, k, r)
+        return scatter_sorted_plain(ct, idx, s_ids, q_cell_start, k, r, q_perm)
     dev = ct.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(
@@ -157,30 +173,40 @@ def scatter_sorted(
             f"CUDA device, got {[str(t.device) for t in tensors]}"
         )
     ns = s_ids.shape[0]
-    if ct.ndim != 2 or ns < 1 or k < 1 or ct.shape[0] % k:
+    if ct.ndim != 2 or ns < 1 or k < 1 or ct.shape[0] % k or not ct.shape[0]:
         raise ValueError(
             f"scatter_sorted: ct must be (Nq*K, C) with K={k} and a non-"
             f"empty support, got {tuple(ct.shape)} and Ns={ns}"
         )
+    if ct.dtype not in _DTYPES:
+        raise ValueError(
+            f"scatter_sorted: ct must be float32 or bfloat16, got {ct.dtype}")
     nqk, c = ct.shape
-    for name, t, dt, shape in (
-        ("ct", ct, torch.float32, (nqk, c)),
+    checks = [
+        ("ct", ct, ct.dtype, (nqk, c)),
         ("idx", idx, torch.int32, (nqk,)),
         ("s_ids", s_ids, torch.int32, (ns,)),
         ("q_cell_start", q_cell_start, torch.int32, (r * r * r + 1,)),
-    ):
+    ]
+    if q_perm is not None:
+        checks.append(("q_perm", q_perm, torch.int32, (nqk // k,)))
+    for name, t, dt, shape in checks:
         if t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(
                 f"scatter_sorted: {name} must be contiguous {dt} {shape}, "
                 f"got {t.dtype} {tuple(t.shape)}"
             )
+    if idx.data_ptr() % 16:              # the kernel reads idx as int4
+        idx = idx.clone()
     out = torch.empty((ns, c), dtype=torch.float32, device=dev)
     fn = load_library().scatter_sorted_launch
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = fn(
-            ct.data_ptr(), idx.data_ptr(), s_ids.data_ptr(),
-            q_cell_start.data_ptr(), out.data_ptr(), ns, c, k, r, stream,
+            ct.data_ptr(), idx.data_ptr(),
+            None if q_perm is None else q_perm.data_ptr(), s_ids.data_ptr(),
+            q_cell_start.data_ptr(), out.data_ptr(), nqk // k, ns, c, k, r,
+            _DTYPES[ct.dtype], stream,
         )
     if rc != 0:
         raise RuntimeError(f"scatter_sorted: kernel launch failed, CUDA error {rc}")
@@ -189,7 +215,7 @@ def scatter_sorted(
 
 
 def scatter_add_sorted(
-    ct: torch.Tensor,           # (Nq, K, C) cotangents
+    ct: torch.Tensor,           # (Nq, K, C) cotangents, f32 or bf16
     idx: torch.Tensor,          # (Nq, K) int sorted-support rows
     support_xyz: torch.Tensor,  # (Ns, 3) cell-sorted at the search grid
     query_xyz: torch.Tensor,    # (Nq, 3)
@@ -201,21 +227,23 @@ def scatter_add_sorted(
 ) -> torch.Tensor:
     """Sum the ct rows into (Ns, C) f32 along the sorted plan: the
     gradient of a row gather whose indices came from the level's
-    windowed search. ``query_sorted=False`` (the pool gather, whose
-    queries live in the next level's order) first sorts the query rows
-    by their cell at this level, stably; the sum does not depend on the
-    query order."""
+    windowed search. ct is read in its own type. ``query_sorted=False``
+    (the pool gather, whose queries live in the next level's order)
+    sorts the queries' cells and indices by their cell at this level,
+    stably, and hands the kernel the permutation to read ct through; the
+    sum does not depend on the query order."""
     nq, k, c = ct.shape
     s_ids, r = _cells_at_level(support_xyz.float(), lo, span, r0, level)
     q_ids, _ = _cells_at_level(query_xyz.float(), lo, span, r0, level)
-    ct = ct.float()
     idx = idx.to(torch.int32)
+    q_perm = None
     if not query_sorted:
         qs = torch.argsort(q_ids, stable=True)
-        q_ids, ct, idx = q_ids[qs], ct[qs], idx[qs]
+        q_ids, idx, q_perm = q_ids[qs], idx[qs], qs.to(torch.int32)
     return scatter_sorted(
         ct.reshape(nq * k, c).contiguous(), idx.reshape(-1).contiguous(),
         s_ids.to(torch.int32).contiguous(), cell_prefix_sums(q_ids, r), k, r,
+        q_perm,
     )
 
 

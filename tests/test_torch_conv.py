@@ -33,6 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from pointunet_tpu.core.config import brats_saliency_config as jax_cfg
 from pointunet_tpu.models.saliency_unet import init_saliency_unet as jax_init
@@ -83,29 +84,26 @@ def _from_port(y, batched):
     return y if batched else y[0]
 
 
-@pytest.mark.parametrize("shape,cin,cout", [
-    ((8, 16, 24), 8, 16),
-    ((7, 13, 24), 8, 4),
-    ((5, 9, 16), 16, 8),
+@pytest.mark.parametrize("shape,cin,cout,batch", [
+    ((8, 16, 24), 8, 16, None),
+    ((7, 13, 24), 8, 4, None),
+    ((5, 9, 16), 16, 8, None),
+    ((8, 8, 16), 8, 8, 2),
 ])
-def test_plain_matches_pallas_conv(interpret, shape, cin, cout):
-    x, w = _inputs(np.random.default_rng(0), shape, cin, cout)
-    want = conv_pallas.conv3d_3x3_pallas(jnp.asarray(x), jnp.asarray(w),
-                                         bz=4, by=8)
+def test_plain_matches_pallas_conv(interpret, shape, cin, cout, batch):
+    x, w = _inputs(np.random.default_rng(0 if batch is None else 1), shape,
+                   cin, cout, batch=batch)
+    if batch is None:
+        want = conv_pallas.conv3d_3x3_pallas(jnp.asarray(x), jnp.asarray(w),
+                                             bz=4, by=8)
+    else:
+        want = conv_pallas.conv3d_3x3_pallas_batched(jnp.asarray(x),
+                                                     jnp.asarray(w))
     got = conv_cuda.conv3d_3x3(*_to_port(x, w))
     assert got.dtype == torch.float32
-    np.testing.assert_allclose(_from_port(got, False), np.asarray(want),
-                               rtol=2e-5, atol=2e-5)
-
-
-def test_plain_matches_pallas_conv_batched(interpret):
-    x, w = _inputs(np.random.default_rng(1), (8, 8, 16), 8, 8, batch=2)
-    want = conv_pallas.conv3d_3x3_pallas_batched(jnp.asarray(x),
-                                                 jnp.asarray(w))
-    got = conv_cuda.conv3d_3x3(*_to_port(x, w))
-    assert got.shape == (2, 8, 8, 8, 16)
-    np.testing.assert_allclose(_from_port(got, True), np.asarray(want),
-                               rtol=2e-5, atol=2e-5)
+    assert got.shape == (batch or 1, cout) + shape
+    np.testing.assert_allclose(_from_port(got, batch is not None),
+                               np.asarray(want), rtol=2e-5, atol=2e-5)
 
 
 def _bf16_ulp(a: np.ndarray) -> np.ndarray:
@@ -263,37 +261,202 @@ def test_packed_weight_reads_back(cin, cout):
     assert not wp[:, :, cout:].any()
 
 
-def _conv_from_packed(x, wp, cout):
-    """The tensor-core kernel's sum in plain torch: stages of 16 input
-    channels and one input plane dz, each the 9 (dy, dx) taps' products
-    of the shifted tile with the packed (16, N) weight block."""
+def _xf_logical(wpx: torch.Tensor, cout: int) -> torch.Tensor:
+    """``pack_weight_xf``'s blocks read back through its documented index
+    formula: (Cin / 8, 27, T * BN, 8), [c // 8, dz * 9 + t9, o, c % 8]."""
+    chunks, _, nt, _, blk = wpx.shape
+    bn = blk // 8
+    out = torch.empty((chunks, 27, nt * bn, 8), dtype=wpx.dtype)
+    for n in range(bn):
+        for k in range(8):
+            e = ((n // 8) * 2 + k // 4) * 32 + (n % 8) * 4 + k % 4
+            for t in range(nt):
+                out[:, :, t * bn + n, k] = wpx[:, :, t, :, e].reshape(
+                    chunks, 27)
+    return out
+
+
+@pytest.mark.parametrize("cin,cout", [(32, 2), (16, 64), (48, 20),
+                                      (8, 128)])
+def test_packed_xf_weight_reads_back(cin, cout):
+    """The 3xTF32 kernel's weight layout (its packing kernel's plain
+    form) holds w at the documented places and zeros past Cout, and its
+    TF32 hi and lo parts add back to it."""
+    w = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (cout, cin, 3, 3, 3)).astype(np.float32))
+    wpx = conv_cuda.pack_weight_xf(w)
+    bn = conv_cuda.xf_tile_n(cout)
+    nt = -(-cout // bn)
+    assert wpx.shape == (cin // 8, 3, nt, 9, bn * 8)
+    logical = _xf_logical(wpx, cout)
+    back = logical[:, :, :cout].permute(2, 0, 3, 1).reshape(cout, cin, 27)
+    assert torch.equal(back, w.reshape(cout, cin, 27))
+    assert not logical[:, :, cout:].any()
+    hi, lo = conv_cuda.split_tf32(wpx)
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    assert float((hi + lo - wpx).abs().max()) <= 2.0 ** -21 * float(
+        wpx.abs().max())
+
+
+def _conv_from_packed(x, wp, cout, runs=1):
+    """The tensor-core kernels' sum in plain torch from their packed
+    weight (``pack_weight``'s for bf16, ``pack_weight_xf``'s for f32):
+    stages of 16 (bf16) or 8 (f32) input channels and one input plane dz,
+    each the 9 (dy, dx) taps' products of the shifted tile with the (ck,
+    N) weight block. f32 follows the 3xTF32 kernel: the operands split into TF32 hi
+    and lo, a stage's 27 x 3 products (lo x hi, hi x lo, hi x hi) summed
+    from zero and added to the running sum, the channel chunks in
+    ``runs`` contiguous runs whose sums are added in order."""
     b, cin, d, h, wd = x.shape
+    f32 = wp.ndim == 5               # pack_weight_xf's blocks
+    if f32:
+        wp = _xf_logical(wp, cout)
+    ck = wp.shape[-1]
     xp = torch.nn.functional.pad(x.float(), (1, 1, 1, 1, 1, 1))
-    acc = torch.zeros((b, wp.shape[2], d, h, wd))
-    for cc in range(cin // 16):
-        for dz in range(3):
-            for t9 in range(9):
-                dy, dx = divmod(t9, 3)
-                tile = xp[:, cc * 16:(cc + 1) * 16, dz:dz + d, dy:dy + h,
-                          dx:dx + wd]
-                acc += torch.einsum("bcdhw,nc->bndhw", tile,
-                                    wp[cc, dz * 9 + t9].float())
-    return acc[:, :cout]
+    if f32:
+        (xh, xl), (wh, wl) = conv_cuda.split_tf32(xp), conv_cuda.split_tf32(wp)
+    chunks = cin // ck
+    per = -(-chunks // runs)
+    out = torch.zeros((b, wp.shape[2], d, h, wd))
+    for c0 in range(0, chunks, per):
+        acc = torch.zeros_like(out)
+        for cc in range(c0, min(chunks, c0 + per)):
+            for dz in range(3):
+                part = torch.zeros_like(out)
+                for t9 in range(9):
+                    dy, dx = divmod(t9, 3)
+                    sl = (slice(None), slice(cc * ck, (cc + 1) * ck),
+                          slice(dz, dz + d), slice(dy, dy + h),
+                          slice(dx, dx + wd))
+                    tap = dz * 9 + t9
+                    if f32:
+                        for xa, wb in ((xl, wh), (xh, wl), (xh, wh)):
+                            part += torch.einsum("bcdhw,nc->bndhw", xa[sl],
+                                                 wb[cc, tap])
+                    else:
+                        part += torch.einsum("bcdhw,nc->bndhw", xp[sl],
+                                             wp[cc, tap].float())
+                acc += part
+        out += acc
+    return out[:, :cout]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("cin,cout,shape", [
     (16, 16, (4, 6, 8)), (32, 2, (3, 5, 12)), (32, 20, (5, 4, 6)),
 ])
-def test_packed_conv_matches_plain(cin, cout, shape):
+def test_packed_conv_matches_plain(cin, cout, shape, dtype):
+    """The sum from the packed weight, indexed as the kernel indexes it,
+    within 1e-5 x max |plain| of the plain version (f32 sum order; for
+    f32 also the dropped lo x lo products, ~2^-22 relative)."""
     rng = np.random.default_rng(6)
     x = torch.from_numpy(rng.standard_normal(
         (1, cin) + shape).astype(np.float32))
     w = torch.from_numpy(
         (rng.standard_normal((cout, cin, 3, 3, 3)) * 0.1).astype(np.float32))
-    want = conv_cuda.conv3d_3x3_plain(x, w)
-    got = _conv_from_packed(x, conv_cuda.pack_weight(w), cout)
+    if dtype == torch.bfloat16:
+        want = conv_cuda.conv3d_3x3_plain(x, w.bfloat16().float())
+        got = _conv_from_packed(x, conv_cuda.pack_weight(w.bfloat16()), cout)
+    else:
+        want = conv_cuda.conv3d_3x3_plain(x, w)
+        got = _conv_from_packed(x, conv_cuda.pack_weight_xf(w), cout)
     assert got.shape == want.shape
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+# every distinct (Cin, Cout) of the 19 eligible convs that the f32 path
+# runs on the tensor cores
+XF_PAIRS = [(16, 16), (32, 32), (64, 64), (128, 128), (256, 256), (16, 64),
+            (32, 64), (128, 64), (128, 2)]
+
+
+@pytest.mark.parametrize("cin,cout", XF_PAIRS)
+def test_3xtf32_sum_meets_the_f32_bar(interpret, cin, cout):
+    """The 3xTF32 kernel's arithmetic (``_conv_from_packed`` on its
+    packed weight, in 2 runs where Cin allows) at the captured channel
+    counts on a (4, 8, 8) volume: within 2e-5 x max(1, max |ref|) of the
+    f64 conv and of the Pallas kernel in interpret mode (the reference's
+    f32 bar), where one TF32 product (hi x hi) is not."""
+    x, w = _inputs(np.random.default_rng(7), (4, 8, 8), cin, cout)
+    xt, wt = _to_port(x, w)
+    exact = torch.nn.functional.conv3d(xt.double(), wt.double(), padding=1)
+    pallas = torch.from_numpy(np.asarray(conv_pallas.conv3d_3x3_pallas(
+        jnp.asarray(x), jnp.asarray(w), bz=4, by=8))).permute(3, 0, 1, 2)[None]
+    got = _conv_from_packed(xt, conv_cuda.pack_weight_xf(wt), cout,
+                            runs=min(2, cin // 8))
+    for ref in (exact, pallas.double()):
+        bar = 2e-5 * max(1.0, float(ref.abs().max()))
+        assert float((got.double() - ref).abs().max()) <= bar
+    # one TF32 product a term: every operand rounded to 11 significant bits
+    xh, wh = conv_cuda.split_tf32(xt)[0], conv_cuda.split_tf32(wt)[0]
+    one = torch.nn.functional.conv3d(xh.double(), wh.double(), padding=1)
+    bar = 2e-5 * max(1.0, float(exact.abs().max()))
+    assert float((one - exact).abs().max()) > 5 * bar
+
+
+def _rna_reference(x: np.ndarray) -> np.ndarray:
+    """TF32 rounding of normal f32 values in f64 arithmetic: 11
+    significant bits, ties away from zero."""
+    m, e = np.frexp(x.astype(np.float64))
+    s = m * 2.0 ** 11
+    return np.ldexp(np.sign(s) * np.floor(np.abs(s) + 0.5), e - 11)
+
+
+def test_split_tf32_rounds_as_cvt_rna():
+    u = 2.0 ** -23
+    cases = [                          # (x, hi) with x exact in f32
+        (1.0, 1.0), (0.0, 0.0), (2.0 ** -126, 2.0 ** -126),
+        (1 + 2 ** -11, 1 + 2 ** -10),           # a tie: away from zero
+        (-(1 + 2 ** -11), -(1 + 2 ** -10)),
+        (1 + 3 * 2 ** -11, 1 + 2 ** -9),        # a tie: away from zero
+        (1 + 2 ** -11 - u, 1.0),                # just below the tie
+        (1 + 2 ** -11 + u, 1 + 2 ** -10),
+        (2 - u, 2.0),                           # carries into the exponent
+        (-3.0e38, float(_rna_reference(np.float32([-3.0e38]))[0])),
+    ]
+    x = torch.tensor([c[0] for c in cases], dtype=torch.float32)
+    hi, lo = conv_cuda.split_tf32(x)
+    assert hi.tolist() == [c[1] for c in cases]
+    rest = (x.double() - hi.double()).numpy()      # exact in f32
+    want_lo = np.where(rest == 0, 0.0, _rna_reference(rest))
+    np.testing.assert_array_equal(lo.double().numpy(), want_lo)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    # the sign of zero survives
+    assert torch.signbit(conv_cuda.split_tf32(torch.tensor([-0.0]))[0]).item()
+
+
+@settings(max_examples=300, deadline=None, derandomize=True)
+@given(st.lists(st.floats(min_value=-2.0 ** 127, max_value=2.0 ** 127,
+                          width=32, allow_subnormal=False),
+                min_size=1, max_size=64))
+def test_split_tf32_random(values):
+    x = torch.tensor(values, dtype=torch.float32)
+    hi, lo = conv_cuda.split_tf32(x)
+    xn = x.numpy()
+    np.testing.assert_array_equal(hi.double().numpy(), _rna_reference(xn))
+    rest = (x.double() - hi.double()).numpy()      # exact in f32
+    normal = np.abs(rest) >= 2.0 ** -126
+    np.testing.assert_array_equal(lo.double().numpy()[normal],
+                                  _rna_reference(rest[normal]))
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    err = (hi.double() + lo.double() - x.double()).abs()
+    assert bool((err <= 2.0 ** -21 * x.double().abs()).all())
+
+
+def test_conv_splits_at_the_deep_shapes():
+    """Deep convs split their Cin chunks into runs (none empty); the
+    large ones do not."""
+    for cin, cout, vol, want in (
+            (256, 256, (4, 10, 10), 8), (128, 128, (8, 20, 20), 6),
+            (64, 64, (16, 40, 40), 2), (128, 128, (16, 40, 40), 1),
+            (128, 64, (64, 160, 160), 1), (128, 2, (64, 160, 160), 1)):
+        splits = conv_cuda.conv_splits(1, cin, cout, *vol)
+        assert splits == want
+        per = -(-(cin // 8) // splits)
+        assert (splits - 1) * per < cin // 8
 
 
 def test_conv_path_at_the_captured_shapes():
@@ -302,9 +465,13 @@ def test_conv_path_at_the_captured_shapes():
              for cin, cout, wd in ROI_CONVS]
     assert paths[0] == "cuda_cores"                  # the init conv, 4 -> 16
     assert paths[1:] == ["tensor_cores"] * 18
-    # the f32 window (1, 4, 64, 160, 160): every conv on the CUDA cores
-    for cin, cout, wd in ROI_CONVS:
-        assert conv_cuda.conv_path(torch.float32, cin, cout,
-                                   wd * 160 // 192) == "cuda_cores"
+    # the f32 window (1, 4, 64, 160, 160): every conv but the init conv on
+    # the tensor cores with 3xTF32 products
+    paths = [conv_cuda.conv_path(torch.float32, cin, cout, wd * 160 // 192)
+             for cin, cout, wd in ROI_CONVS]
+    assert paths[0] == "cuda_cores"
+    assert paths[1:] == ["tensor_cores_3xtf32"] * 18
     assert conv_cuda.conv_path(torch.bfloat16, 16, 16, 13) == "cuda_cores"
     assert conv_cuda.conv_path(torch.bfloat16, 24, 16, 12) == "cuda_cores"
+    assert conv_cuda.conv_path(torch.float32, 16, 16, 13) == "cuda_cores"
+    assert conv_cuda.conv_path(torch.float32, 12, 16, 12) == "cuda_cores"

@@ -12,7 +12,14 @@ well. Tolerances:
   its gradient vs ``jax.vjp`` of the reference (XLA's scatter on the
   CPU): the same 1e-6 relative bound, for the same reason;
 * ``gradcheck`` in f64 at its default tolerances (atol 1e-5, rtol 1e-3),
-  which the f32 accumulation of the planned path meets by ~100x.
+  which the f32 accumulation of the planned path meets by ~100x;
+* bf16 ct against ``ct.float()`` through the same plan, and ct read
+  through the query permutation against the permuted copy: bit-equal
+  (the same f32 values summed in the same order);
+* ``sorted_gather``'s bf16 gradient against the reference's VJP on the
+  same (bf16-representable) values in f32, rounded to bf16: within one
+  bf16 ulp (both are f32 sums, in other orders, rounded once to bf16, as
+  the reference's TPU kernel path does).
 """
 import jax
 import jax.numpy as jnp
@@ -22,6 +29,7 @@ import torch
 
 from pointunet_tpu.ops.knn_window import _grid_resolution as jax_grid_resolution
 from pointunet_tpu.ops.scatter_sorted import (
+    S_TILE as JAX_S_TILE,
     _cells_at_level as jax_cells_at_level,
     sorted_gather as jax_sorted_gather,
 )
@@ -257,3 +265,91 @@ def test_wrapper_plain_on_cpu_and_never_falls_back_elsewhere(rng):
     with pytest.raises(ValueError, match="CPU or all on one CUDA"):
         ss.scatter_sorted(ct.to("meta"), i32, s_ids, qcs, k, r0)
     assert ss.LAUNCHES == before
+
+
+def test_tile_is_the_reference_tile():
+    """The plan's tiles are the TPU kernel's: 128 sorted support rows."""
+    assert ss.S_TILE == JAX_S_TILE == 128
+
+
+def _plan_inputs(rng, n, k, c, clustered=False):
+    pts, ids, idx, lo, span, r0 = _sorted_contract_cloud(rng, n, k, clustered)
+    s_ids = torch.from_numpy(ids.astype(np.int32))
+    return (pts, ids, idx, torch.from_numpy(idx.reshape(-1).astype(np.int32)),
+            s_ids, cell_prefix_sums(s_ids, r0), r0)
+
+
+@pytest.mark.parametrize("clustered", [False, True])
+def test_bf16_ct_sums_as_its_f32_copy(rng, clustered):
+    """ct is read in its own type and widened: bf16 ct gives the bits of
+    ``ct.float()`` through the same plan, and both equal the exact
+    scatter of those values."""
+    n, k, c = 4096, 8, 6
+    pts, ids, idx, i32, s_ids, qcs, r0 = _plan_inputs(rng, n, k, c, clustered)
+    ct = torch.from_numpy(
+        rng.standard_normal((n * k, c)).astype(np.float32)).bfloat16()
+    got = ss.scatter_sorted(ct, i32, s_ids, qcs, k, r0)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, ss.scatter_sorted(ct.float(), i32, s_ids, qcs,
+                                              k, r0))
+    _assert_close(got, _exact(idx, ct.float().numpy(), n))
+
+
+@pytest.mark.parametrize("clustered", [False, True])
+def test_permuted_read_equals_the_materialised_copy(rng, clustered):
+    """The pool gather's ct is read through the query permutation
+    (``q_perm``) instead of being copied in sorted order: the same bits."""
+    n, k, c = 4096, 8, 5
+    pts, ids, idx, i32, s_ids, qcs, r0 = _plan_inputs(rng, n, k, c, clustered)
+    perm = torch.from_numpy(rng.permutation(n).astype(np.int32))
+    # ct in the queries' own order: row q of ct is sorted query perm^-1[q]
+    ct_sorted = torch.from_numpy(
+        rng.standard_normal((n, k, c)).astype(np.float32))
+    ct_own = torch.empty_like(ct_sorted)
+    ct_own[perm.long()] = ct_sorted
+    got = ss.scatter_sorted_plain(ct_own.reshape(-1, c), i32, s_ids, qcs, k,
+                                  r0, perm)
+    want = ss.scatter_sorted_plain(ct_sorted.reshape(-1, c), i32, s_ids, qcs,
+                                   k, r0)
+    assert torch.equal(got, want)
+
+
+def _bf16_ulp(a: np.ndarray) -> np.ndarray:
+    e = np.floor(np.log2(np.maximum(np.abs(a), np.finfo(np.float32).tiny)))
+    return np.exp2(e - 7)
+
+
+@pytest.mark.parametrize("query_sorted", [True, False])
+def test_sorted_gather_bf16_grad_matches_reference(rng, planned_everywhere,
+                                                   query_sorted):
+    n, k, c = 2048, 8, 5
+    pts, ids, idx, lo, span, r0 = _sorted_contract_cloud(rng, n, k)
+    q = np.arange(n) if query_sorted else rng.permutation(n)[: n // 2]
+    table = torch.from_numpy(
+        rng.standard_normal((n, c)).astype(np.float32)).bfloat16()
+    ct = torch.from_numpy(
+        rng.standard_normal((len(q), k, c)).astype(np.float32)).bfloat16()
+
+    _, vjp = jax.vjp(
+        lambda t: jax_sorted_gather(
+            t, jnp.asarray(idx[q], jnp.int32), jnp.asarray(pts),
+            jnp.asarray(pts[q]), jnp.asarray(lo), jnp.asarray(span), r0, 0,
+            query_sorted,
+        ),
+        jnp.asarray(table.float().numpy()),
+    )
+    want = torch.from_numpy(np.asarray(
+        vjp(jnp.asarray(ct.float().numpy()))[0])).bfloat16().float().numpy()
+
+    t = table.clone().requires_grad_(True)
+    got = ss.sorted_gather(
+        t, torch.from_numpy(idx[q]), torch.from_numpy(pts),
+        torch.from_numpy(pts[q]), torch.from_numpy(lo),
+        torch.from_numpy(span), r0, 0, query_sorted,
+    )
+    got.backward(ct)
+    assert len(planned_everywhere) == 1       # the planned path ran
+    assert t.grad.dtype == torch.bfloat16
+    g = t.grad.float().numpy()
+    assert (np.abs(g - want) <= _bf16_ulp(np.maximum(np.abs(g),
+                                                     np.abs(want)))).all()
