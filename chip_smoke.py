@@ -13,8 +13,11 @@ line) on any fault. Phases:
 2. kernel: on a 365,000-point cloud drawn by the port's sampler from a
    240x240x155 volume (35% random brain plus an all-voxel tumor ball),
    capture the six cell-window searches of the pyramid (self k=16 and up
-   k=1 at levels 0-2) and run each through the KNN kernel and through its
-   plain version: indices must be equal on every row. Tie-aware recall of
+   k=1 at levels 0-2) and run each through the KNN kernel (twice) and
+   through its plain version: indices must be equal on every row and the
+   two launches bit-equal. Each prints its tile plan (tiles, rows staged
+   in shared memory, the longest tile's windows in ring chunks) and
+   candidates a second beside the bound's. Tie-aware recall of
    the level-0 self search against exact brute force must be >= 0.99
    overall and >= 0.995 on tumor queries. Times come from CUDA events;
 3. scatter: on that cloud's pyramid, the sorted scatter kernel at the
@@ -81,6 +84,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import gzip
 import json
 import os
@@ -169,6 +173,17 @@ def phase_build() -> tuple:
                 f"most {max(regs, default=0)} registers a thread, "
                 f"{max(smem, default=0)} bytes of static smem, {spills} "
                 f"bytes of spills")
+            if so.stem.startswith("knn_cell_window"):
+                for entry in text.split("Compiling entry function")[1:]:
+                    name = re.search(r"kernelILi(\d+)E", entry)
+                    used = re.search(r"Used (\d+) registers", entry)
+                    spill = re.search(r"(\d+) bytes spill stores, (\d+) "
+                                      r"bytes spill loads", entry)
+                    if name and used and spill:
+                        log(f"[build] ptxas knn_cell_window k={name[1]}: "
+                            f"{used[1]} registers a thread, spill stores "
+                            f"{spill[1]} B, spill loads {spill[2]} B (its "
+                            f"shared memory is dynamic: phase 2 prints it)")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -285,6 +300,8 @@ def phase_kernel(dev):
     if len(calls) != LAUNCHES_PER_VOLUME:
         raise AssertionError(f"expected 6 cell-window searches, got {len(calls)}")
 
+    lib = knn_cuda.load_library()
+    lib.knn_cell_window_smem_bytes.argtypes = [ctypes.c_int]
     shapes = []
     for n, (sp, s_ids, qp, qc3, k, r) in enumerate(calls):
         level, kind = n // 2, ("self", "up")[n % 2]
@@ -292,9 +309,11 @@ def phase_kernel(dev):
         qc = qc3.to(torch.int32).contiguous()
         sp, qp = sp.contiguous(), qp.contiguous()
         got = knn_cuda.knn_cell_window(sp, cs, qp, qc, k, r)
+        again = knn_cuda.knn_cell_window(sp, cs, qp, qc, k, r)
         want = knn_cuda.knn_cell_window_plain(sp, cs, qp, qc, k, r)
         torch.cuda.synchronize()
         bad = int((got != want).any(1).sum())
+        bitwise = torch.equal(got, again)
         err = int((got.long() - want.long()).abs().max())
         rel = err / max(1, int(want.abs().max()))
         ms = cuda_ms(lambda: knn_cuda.knn_cell_window(sp, cs, qp, qc, k, r), 20)
@@ -308,19 +327,32 @@ def phase_kernel(dev):
         nbytes = 4 * (3 * ns + cs.numel() + 6 * nq + nq * k)
         cand = int(knn_cuda._spans(qc, cs, r)[1].sum())
         b_ms = bound_ms(nbytes, 8 * cand)
-        by = "bytes" if nbytes / HBM_BYTES_S >= 8 * cand / F32_OPS_S else "operations"
+        by = bound_by(nbytes, 8 * cand)
+        # the kernel's tile plan: tiles, rows staged in shared memory, the
+        # longest tile's windows in ring chunks
+        win = knn_cuda.tile_windows_plain(qc, cs, r)
+        staged = (win[..., 1] - win[..., 0]).sum(1)
+        chunks = int(-(-staged.max() // knn_cuda.CHUNK[k]))
         log(f"[kernel] L{level} {kind} k={k} Ns={ns} Nq={nq} r={r}: rows "
-            f"differing {bad}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms by {by} ({nbytes} B, {cand} candidates)")
-        if bad:
+            f"differing {bad}, bit-equal relaunch {bitwise}, kernel {ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {by} "
+            f"({nbytes} B, {cand} candidates); {win.shape[0]} tiles, "
+            f"{int(staged.sum())} rows staged ({12 * int(staged.sum())} B), "
+            f"longest tile {chunks} chunks of {knn_cuda.CHUNK[k]} rows, "
+            f"{lib.knn_cell_window_smem_bytes(k)} B of shared memory a "
+            f"block; {cand / ms * 1e3:.4e} candidates/s against "
+            f"{cand / b_ms * 1e3:.4e} at the bound")
+        if bad or not bitwise:
             raise AssertionError(
                 f"kernel disagrees with its plain version on {bad} rows "
-                f"(L{level} {kind})"
+                f"or across launches ({bitwise}) (L{level} {kind})"
             )
         shapes.append({
             "search": f"L{level} {kind} k={k} Ns={ns} Nq={nq}",
             "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
             "max_rel_err": rel, "bound_ms": b_ms, "bound_by": by,
+            "candidates": cand, "tiles": win.shape[0],
+            "staged_rows": int(staged.sum()), "longest_tile_chunks": chunks,
         })
 
     # recall of the level-0 self search against exact brute force, on a
@@ -332,6 +364,10 @@ def phase_kernel(dev):
     tmask = tumor[pyr.order.long()][sel].float()
     overall = float(hit.mean())
     tum = float((hit * tmask).sum() / tmask.sum().clamp(min=1))
+    log(f"[kernel] the 6 searches: kernel "
+        f"{sum(s['ms'] for s in shapes):.4f} ms, bound "
+        f"{sum(s['bound_ms'] for s in shapes):.4f} ms, plain "
+        f"{sum(s['plain_ms'] for s in shapes):.4f} ms")
     log(f"[kernel] tie-aware recall vs exact ({sel.numel()} queries): "
         f"overall {overall:.6f}, tumor {tum:.6f}")
     if overall < 0.99 or tum < 0.995:
@@ -341,11 +377,14 @@ def phase_kernel(dev):
         "route": "cuda",
         "source": "pointunet_tpu_torch/csrc/knn_cell_window.cu",
         "replaces": "pointunet_tpu/ops/knn_pallas.py:208",
+        "shape": shapes[0]["search"],
         "ms": shapes[0]["ms"],
         "plain_ms": shapes[0]["plain_ms"],
         "bound_ms": shapes[0]["bound_ms"],
         "bound_by": shapes[0]["bound_by"],
         "library_ms": None,             # no one PyTorch call does this
+        "ms_6_searches": sum(s["ms"] for s in shapes),
+        "bound_ms_6_searches": sum(s["bound_ms"] for s in shapes),
         "max_abs_err": max(s["max_abs_err"] for s in shapes),
         "max_rel_err": max(s["max_rel_err"] for s in shapes),
         "recall_overall": overall,

@@ -83,8 +83,8 @@ def build_pipeline(args) -> Pipeline:
     if args.saliency_checkpoint:
         raise SystemExit(
             "--saliency_checkpoint: the port cannot load saliency "
-            "checkpoints yet; it has no saliency trainer to write them "
-            "(ROADMAP queue 1, item 8)"
+            "checkpoints yet: neither the JAX package's nor its own, as it "
+            "has no saliency trainer (ROADMAP queue 1, items 2 and 3)"
         )
     gen = torch.Generator().manual_seed(0)
     saliency = init_saliency_unet(scfg, gen)
@@ -169,7 +169,7 @@ def main(argv=None) -> Dict[str, float]:
                     ),
                     device=args.device,
                 )
-            labels = fast_pipe.segment_volume(mods)
+            labels = fast_pipe.segment_volume(mods, brats_labels=brats)
             if args.postprocess and brats:
                 labels = postprocess_brats(labels)
         else:

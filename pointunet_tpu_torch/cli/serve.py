@@ -5,16 +5,20 @@ The process builds the models once, then polls an inbox for new
 BraTS-layout case folders (``<case>/<case>_{t1ce,t1,flair,t2}.nii.gz``, as
 ``data.loader.find_brats_cases`` reads them) and writes ``<case>.nii.gz``
 labels plus a ``<case>.json`` latency record to the outbox. Cases already
-in the outbox are skipped, so the service is restart-safe. (The
-reference's Pancreas inbox is not ported yet.)
+in the outbox are skipped, so the service is restart-safe.
 
 Usage:
     python -m pointunet_tpu_torch.cli.serve --inbox in/ --outbox out/ \
-        [--once] [--device cuda] [--roi X Y Z] [--n_point N]
+        [--once] [--device cuda] [--roi X Y Z] [--n_point N] \
+        [--pointseg_checkpoint DIR]
 
 ``--once`` drains the current inbox and exits; without it the service
-polls every ``--poll_s`` seconds. Weights are randomly initialised (seed
-0) until the port can load checkpoints.
+polls every ``--poll_s`` seconds. The models come from
+``cli/segment.py:build_pipeline`` on its ``--fast`` path: random weights
+from seed 0, and ``--pointseg_checkpoint`` restores the best checkpoint
+the port's trainer wrote, as ``segment`` does. The reference's
+``--dataset pancreas`` and ``--saliency_checkpoint`` are taken and
+refused with the ROADMAP item that will bring them.
 """
 from __future__ import annotations
 
@@ -32,11 +36,11 @@ from ..pipeline.fused import FusedPointUnet
 from .segment import build_pipeline
 
 
-def _serve_case(fast_pipe, case, mods, outbox):
+def _serve_case(fast_pipe, case, mods, outbox, brats_labels):
     out_nii = os.path.join(outbox, case + ".nii.gz")
     out_rec = os.path.join(outbox, case + ".json")
     t0 = time.time()
-    labels = fast_pipe.segment_volume(mods)
+    labels = fast_pipe.segment_volume(mods, brats_labels=brats_labels)
     latency = time.time() - t0
     nifti.save(labels.astype(np.uint8), out_nii)
     with open(out_rec, "w") as f:
@@ -55,7 +59,7 @@ class Server:
 
     def __init__(self, args: argparse.Namespace):
         self.args = args
-        self.pipeline = build_pipeline(args.n_point)
+        self.pipeline = build_pipeline(args)
         self.pipes: dict = {}
         self.failures: dict = {}
         self.served = 0
@@ -84,7 +88,8 @@ class Server:
             try:
                 mods = load_brats_volume(case_dir)
                 pipe = self.pipe(tuple(mods.shape[1:]))
-                latency = _serve_case(pipe, case, mods, outbox)
+                latency = _serve_case(pipe, case, mods, outbox,
+                                      self.args.dataset == "brats")
             except Exception as e:       # contain per-case failures:
                 # a malformed or half-copied case is retried on later polls
                 # and skipped after 3 strikes, so it cannot crash-loop or
@@ -106,6 +111,10 @@ def main(argv=None) -> Server:
     parser.add_argument("--inbox", type=str, required=True,
                         help="directory of incoming case folders")
     parser.add_argument("--outbox", type=str, required=True)
+    parser.add_argument("--dataset", choices=["brats", "pancreas"],
+                        default="brats")
+    parser.add_argument("--saliency_checkpoint", type=str, default=None)
+    parser.add_argument("--pointseg_checkpoint", type=str, default=None)
     parser.add_argument("--threshold", type=float, default=0.9)
     parser.add_argument("--roi", type=int, nargs=3, default=None,
                         metavar=("X", "Y", "Z"))
@@ -116,6 +125,12 @@ def main(argv=None) -> Server:
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
+    if args.dataset == "pancreas":
+        raise SystemExit(
+            "--dataset pancreas: the port has no Pancreas inbox, loader or "
+            "configs on this path yet (ROADMAP queue 1, item 4)"
+        )
+    args.fast, args.sa_stride = True, None   # build_pipeline's serving path
 
     server = Server(args)
     while True:

@@ -18,6 +18,10 @@ no neighbour takes the first neighbour found (row 0 if none).
 * ``knn_cell_window`` is the wrapper: the plain version for CPU tensors;
   for CUDA tensors it launches the kernel of ``csrc/knn_cell_window.cu``
   or raises. ``LAUNCHES`` counts its kernel launches.
+* ``tile_windows_plain`` is the kernel's tile plan in plain torch: for
+  each block of ``TILE`` sorted queries and each (dx, dy), the union of
+  the queries' spans, which the kernel stages in shared memory
+  ``CHUNK[k]`` rows at a time.
 
 The kernel's source note says what bounds it on the H100 and how its
 design answers that. The library is built and loaded by
@@ -28,6 +32,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from . import cuda_build
 
@@ -38,6 +43,11 @@ LAUNCHES = 0
 # and up search (1); the plain version takes any k
 KERNEL_KS = (1, 16)
 PLAIN_CHUNK = 4096      # queries per candidate block of the plain version
+# the kernel's tile plan (KNN_TILE, KNN_CHUNK and KNN_UP_CHUNK of the
+# source): sorted queries a block, support rows a shared-memory ring slot
+# for each k
+TILE = 64
+CHUNK = {16: 2048, 1: 1024}
 SOURCE = cuda_build.CSRC / "knn_cell_window.cu"
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
@@ -73,6 +83,28 @@ def _spans(qc: torch.Tensor, cell_start: torch.Tensor, r: int):
     end = cell_start[base + z1 + 1].long()
     length = torch.where(inside & (z0 <= z1), end - start, 0)
     return start, length
+
+
+def tile_windows_plain(
+    qc: torch.Tensor, cell_start: torch.Tensor, r: int, tile: int = TILE
+) -> torch.Tensor:
+    """(ceil(Nq / tile), 9, 2) int64 ``[lo, hi)`` support rows a tile of
+    ``tile`` sorted queries stages for each (dx, dy) of ``_OFFSETS``: the
+    least start and the greatest end of its queries' non-empty spans
+    ([0, 0) where all are empty). Every span of every query of the tile
+    lies inside its window."""
+    start, length = _spans(qc, cell_start, r)
+    end = start + length
+    n_tiles = -(-qc.shape[0] // tile)
+    pad = n_tiles * tile - qc.shape[0]
+    empty = F.pad(length == 0, (0, 0, 0, pad), value=True)
+    big = torch.iinfo(torch.int64).max
+    lo = F.pad(start, (0, 0, 0, pad)).masked_fill(empty, big)
+    hi = F.pad(end, (0, 0, 0, pad)).masked_fill(empty, -1)
+    lo = lo.view(n_tiles, tile, 9).amin(1)
+    hi = hi.view(n_tiles, tile, 9).amax(1)
+    none = hi < 0
+    return torch.stack([lo.masked_fill(none, 0), hi.masked_fill(none, 0)], -1)
 
 
 def knn_cell_window_plain(
@@ -161,6 +193,11 @@ def knn_cell_window(
                 f"knn_cell_window: {name} must be contiguous {dt} {shape}, "
                 f"got {t.dtype} {tuple(t.shape)}"
             )
+    if sp.data_ptr() % 16:
+        raise ValueError(
+            "knn_cell_window: sp must start 16-byte aligned (the kernel "
+            "stages its rows with 16-byte copies)"
+        )
     out = torch.empty((nq, k), dtype=torch.int32, device=dev)
     fn = load_library().knn_cell_window_launch
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -67,6 +67,7 @@ class FusedPointUnet:
         att_downscale: int = 1,         # run saliency at 1/s resolution
         mask_dilate: int = 0,           # dilate the salient mask (voxels)
         mask_band: int = 0,             # boundary-band width (voxels)
+        band_threshold: float | None = None,
         device="cuda",
     ):
         """Options as in the reference: ``roi_shape`` crops the attention
@@ -74,7 +75,8 @@ class FusedPointUnet:
         the saliency net on an s^3-average-pooled window and resizes the
         probability map back; ``mask_dilate`` grows the thresholded mask;
         ``mask_band`` adds a second, lower sampling tier (the core dilated
-        by ``mask_band`` minus the core, plus voxels above threshold / 4).
+        by ``mask_band`` minus the core, plus voxels at or above
+        ``band_threshold``, threshold / 4 unless given).
         The models are moved to ``device`` (the card unless the caller
         asks for the CPU) and set to eval mode."""
         self.device = torch.device(device)
@@ -87,6 +89,9 @@ class FusedPointUnet:
         self.att_downscale = int(att_downscale)
         self.mask_dilate = int(mask_dilate)
         self.mask_band = int(mask_band)
+        self.band_threshold = (
+            threshold / 4.0 if band_threshold is None else float(band_threshold)
+        )
         if self.att_downscale < 1:
             raise ValueError(
                 f"att_downscale must be >= 1, got {self.att_downscale}"
@@ -146,7 +151,7 @@ class FusedPointUnet:
             core = probs >= self.threshold
             band = (
                 (_maxpool3(probs, self.mask_band) >= self.threshold)
-                | (probs >= self.threshold / 4.0)
+                | (probs >= self.band_threshold)
             ) & ~core
             mask_roi = 2 * core.to(torch.uint8) + band.to(torch.uint8)
         else:
@@ -194,14 +199,17 @@ class FusedPointUnet:
             pyramid, cloud.xyz, cloud.features, cloud.xyz_origin
         )
 
-    def segment_volume(self, modalities: np.ndarray, seed: int = 0) -> np.ndarray:
-        """(C, X, Y, Z) numpy -> (X, Y, Z) uint8 labels in BraTS values
-        (class 3 is written as 4)."""
+    def segment_volume(
+        self, modalities: np.ndarray, seed: int = 0, brats_labels: bool = True,
+    ) -> np.ndarray:
+        """(C, X, Y, Z) numpy -> (X, Y, Z) uint8 labels; with
+        ``brats_labels`` in BraTS values (class 3 is written as 4)."""
         mods = torch.as_tensor(
             np.asarray(modalities, np.float32), device=self.device
         )
         gen = torch.Generator(device=self.device).manual_seed(seed)
         labels = self.segment_device(mods, gen).cpu().numpy()
         labels = np.transpose(labels, (2, 1, 0)).copy()
-        labels[labels == 3] = 4
+        if brats_labels:
+            labels[labels == 3] = 4
         return labels

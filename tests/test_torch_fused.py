@@ -12,6 +12,8 @@ voxels with the reference's pyramid fed in; with each side's own
 pyramid, whose neighbour rows differ only within distance tie classes,
 on >= 0.993 of voxels (measured). The scatter is bit for bit.
 """
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -311,6 +313,41 @@ def test_segment_volume(models, mods):
     assert set(np.unique(labels)) <= {0, 1, 2, 4}
     assert 0 < (labels > 0).sum() <= N
     np.testing.assert_array_equal(labels, pipe.segment_volume(mods, seed=1))
+
+
+def test_band_threshold_mask_agrees(models, mods):
+    """A non-default ``band_threshold``: the port's graded mask equals the
+    reference's on the same converted weights and volume (the bar of
+    test_attention_mask_agrees), and it differs from the default's."""
+    opts = dict(threshold=THRESHOLD, volume_shape=VOLUME, roi_shape=ROI,
+                **CASES["downscale_band"])
+    want = np.asarray(JaxFused(*models["jax"], band_threshold=0.3, **opts)
+                      ._attention_mask(jnp.asarray(mods)))
+    got = FusedPointUnet(*models["port"], band_threshold=0.3, device="cpu",
+                         **opts)._attention_mask(torch.from_numpy(mods)).numpy()
+    default = FusedPointUnet(*models["port"], device="cpu", **opts)
+    assert default.band_threshold == THRESHOLD / 4
+    assert got.dtype == want.dtype == np.uint8
+    assert (got == want).mean() >= 0.999
+    assert (got == 1).sum() < (default._attention_mask(
+        torch.from_numpy(mods)).numpy() == 1).sum()
+
+
+def test_segment_volume_brats_labels(models, mods):
+    """At the 4-class BraTS config, class 3 comes out as 4 only with
+    ``brats_labels`` (the default); a head biased to class 3 puts it on
+    every sampled voxel."""
+    sal, pseg, scfg, pcfg = models["port"]
+    pseg = copy.deepcopy(pseg)
+    with torch.no_grad():
+        pseg.head.bias[3] += 1e4
+    pipe = FusedPointUnet(sal, pseg, scfg, pcfg, threshold=THRESHOLD,
+                          volume_shape=VOLUME, roi_shape=ROI, device="cpu")
+    raw = pipe.segment_volume(mods, seed=1, brats_labels=False)
+    assert pcfg.num_classes == 4
+    assert set(np.unique(raw)) == {0, 3}
+    np.testing.assert_array_equal(pipe.segment_volume(mods, seed=1),
+                                  np.where(raw == 3, 4, raw))
 
 
 def test_fused_rejects_conflicting_modes(models):

@@ -36,6 +36,27 @@ def _sorted_cloud(pts, r):
     return pts[order], c3[order], ids[order].astype(np.int32)
 
 
+def _dense_ball_cloud(rng, side=24, radius=6, keep=0.35):
+    """Voxel centres of a side^3 grid: a random ``keep`` share plus every
+    voxel of a ball, the chip smoke's cloud at a small size."""
+    g = np.stack(np.meshgrid(*(np.arange(side),) * 3, indexing="ij"), -1)
+    g = g.reshape(-1, 3)
+    ball = ((g - side / 2) ** 2).sum(1) < radius ** 2
+    pick = ball | (rng.uniform(size=len(g)) < keep)
+    pts = g[pick][rng.permutation(int(pick.sum()))]
+    return (pts / side).astype(np.float32)
+
+
+def _sorted_inputs(pts):
+    """(sp, cell_start, qc, r) of a self search over ``pts``."""
+    r = _grid_resolution(len(pts), 1.8)
+    sp, sc, ids = _sorted_cloud(pts, r)
+    counts = np.bincount(ids, minlength=r ** 3)
+    cell_start = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    return (torch.from_numpy(sp), torch.from_numpy(cell_start),
+            torch.from_numpy(sc), r)
+
+
 def _voxel_cloud(rng, n=512):
     coords = np.unique(rng.integers(0, 20, (2000, 3)), axis=0)
     return (coords[rng.permutation(len(coords))[:n]] / 20.0).astype(
@@ -142,3 +163,103 @@ def test_cell_prefix_sums():
     cs = knn_cuda.cell_prefix_sums(ids, 2)
     assert cs.dtype == torch.int32
     np.testing.assert_array_equal(cs.numpy(), [0, 2, 2, 3, 3, 3, 6, 6, 7])
+
+
+@pytest.mark.parametrize("cloud,tile", [
+    ("voxels", 64), ("dense_ball", 64), ("dense_ball", 7), ("line", 64),
+])
+def test_tile_windows_hold_every_span(rng, cloud, tile):
+    """The kernel's tile plan: for every tile of ``tile`` sorted queries
+    and every (dx, dy), the staged window is exactly the least start and
+    greatest end of the tile's non-empty spans, so it holds each query's
+    exact span (nothing is truncated), on clouds whose tiles straddle
+    columns and touch the grid's edges."""
+    pts = {
+        "voxels": lambda: _voxel_cloud(rng),
+        "dense_ball": lambda: _dense_ball_cloud(rng),
+        # one point a column along x: every tile straddles many columns
+        "line": lambda: np.stack([np.linspace(0, 1, 300),
+                                  rng.uniform(0, 1, 300),
+                                  rng.uniform(0, 1, 300)], 1).astype(
+                                      np.float32),
+    }[cloud]()
+    sp, cell_start, qc, r = _sorted_inputs(pts)
+    win = knn_cuda.tile_windows_plain(qc, cell_start, r, tile)
+    start, length = knn_cuda._spans(qc, cell_start, r)
+    n = len(pts)
+    assert win.shape == (-(-n // tile), 9, 2)
+    straddle = edge = 0
+    for t in range(win.shape[0]):
+        rows = slice(t * tile, min(n, (t + 1) * tile))
+        s, ln = start[rows], length[rows]
+        live = ln > 0
+        for c in range(9):
+            if live[:, c].any():
+                assert win[t, c, 0] == s[live[:, c], c].min()
+                assert win[t, c, 1] == (s + ln)[live[:, c], c].max()
+            else:
+                assert win[t, c].tolist() == [0, 0]
+        assert ((s >= win[t, :, 0]) | ~live).all()
+        assert ((s + ln <= win[t, :, 1]) | ~live).all()
+        cols = qc[rows, :2].unique(dim=0)
+        straddle += len(cols) > 1
+        edge += bool(((qc[rows, :2] == 0) | (qc[rows, :2] == r - 1)).any())
+    assert straddle > 0 and edge > 0
+
+
+def _keys_select(sp, cell_start, qp, qc, k, r):
+    """The kernel's selection in plain torch: every candidate of a query
+    (its 9 exact spans) keyed by (bits of d^2) << 32 | row, the k least
+    keys by one sort of int64, empty slots filled by the first."""
+    start, length = knn_cuda._spans(qc, cell_start, r)
+    out = torch.zeros((qp.shape[0], k), dtype=torch.int32)
+    for q in range(qp.shape[0]):
+        rows = torch.cat([torch.arange(int(a), int(a + ln))
+                          for a, ln in zip(start[q], length[q])])
+        if rows.numel() == 0:
+            continue
+        e = qp[q] - sp[rows]
+        d2 = e[:, 0] * e[:, 0] + e[:, 1] * e[:, 1] + e[:, 2] * e[:, 2]
+        keys = (d2.view(torch.int32).long() << 32) | rows
+        best = torch.sort(keys).values[:k] & 0xFFFFFFFF
+        out[q, :best.numel()] = best.to(torch.int32)
+        out[q, best.numel():] = best[0].to(torch.int32)
+    return out
+
+
+@pytest.mark.parametrize("k", [1, 16])
+@pytest.mark.parametrize("cloud", ["voxels", "dense_ball"])
+def test_packed_key_selection_equals_plain(rng, k, cloud):
+    """Ordering by the packed key (d^2 bits, row) is ordering by (d^2,
+    row): the k least keys equal ``knn_cell_window_plain`` on every row,
+    on voxel clouds full of distance ties."""
+    pts = _voxel_cloud(rng) if cloud == "voxels" else _dense_ball_cloud(rng)
+    sp, cell_start, qc, r = _sorted_inputs(pts)
+    want = knn_cuda.knn_cell_window_plain(sp, cell_start, sp, qc, k, r)
+    got = _keys_select(sp, cell_start, sp, qc, k, r)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    if k == 16:
+        # ties inside the lists, decided by the lower row
+        e = sp[:, None, :] - sp[want.long()]
+        d2 = e[..., 0] * e[..., 0] + e[..., 1] * e[..., 1] + e[..., 2] * e[..., 2]
+        tie = d2[:, 1:] == d2[:, :-1]
+        assert tie.any()
+        assert (want[:, 1:][tie] > want[:, :-1][tie]).all()
+
+
+def test_box_bound_never_exceeds_a_rows_d2(rng):
+    """The kernel's pruning bound: the f32 distance from a query to a box,
+    each difference, product and sum rounded as for a row, is at most the
+    d^2 of every point in the box (rounding is monotone), so skipping a
+    box farther than the k-th key never changes the result."""
+    pts = torch.from_numpy(_dense_ball_cloud(rng))
+    q = torch.from_numpy(rng.uniform(-0.2, 1.2, (512, 3)).astype(np.float32))
+    for lo in range(0, len(pts), 97):
+        box = pts[lo:lo + 97]
+        bmin, bmax = box.min(0).values, box.max(0).values
+        e = torch.where(q < bmin, bmin - q,
+                        torch.where(q > bmax, q - bmax, torch.zeros(())))
+        bound = e[:, 0] * e[:, 0] + e[:, 1] * e[:, 1] + e[:, 2] * e[:, 2]
+        d = q[:, None, :] - box[None]
+        d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+        assert (bound[:, None] <= d2).all()

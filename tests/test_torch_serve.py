@@ -40,6 +40,51 @@ def test_serve_once_on_cpu(tmp_path):
     assert serve.main(argv).served == 0
 
 
+def test_serve_restores_a_pointseg_checkpoint(tmp_path):
+    """``--pointseg_checkpoint`` restores what the port's trainer saved, as
+    ``segment`` does: the served model holds its weights, and a head
+    biased to class 3 labels every sampled voxel 4 (BraTS values)."""
+    from pointunet_tpu_torch.cli import serve
+    from pointunet_tpu_torch.core.checkpoint import BestMetricCheckpointer
+    from pointunet_tpu_torch.train.pointseg import PointSegTrainer
+
+    n = 4096
+    state = PointSegTrainer(port_config.brats_pointseg_config(num_points=n),
+                            device="cpu").init_state(seed=5)
+    with torch.no_grad():
+        state.model.head.bias[3] += 1e4
+    BestMetricCheckpointer(str(tmp_path / "ckpt")).save(state, 3, metric=0.5)
+    inbox, outbox = tmp_path / "in", tmp_path / "out"
+    make_brats_case(str(inbox), "case_a")
+    server = serve.main([
+        "--inbox", str(inbox), "--outbox", str(outbox), "--once",
+        "--device", "cpu", "--n_point", str(n),
+        "--pointseg_checkpoint", str(tmp_path / "ckpt"),
+    ])
+    assert server.served == 1
+    served = server.pipeline.pointseg_model.state_dict()
+    for name, t in state.model.state_dict().items():
+        assert torch.equal(served[name].cpu(), t), name
+    labels = nifti.load(str(outbox / "case_a.nii.gz")).data
+    assert set(np.unique(labels)) == {0, 4}
+    assert (labels == 4).sum() == n
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--dataset", "pancreas"], "ROADMAP queue 1, item 4"),
+    (["--saliency_checkpoint", "x"], "ROADMAP queue 1, items 2 and 3"),
+])
+def test_serve_refuses_with_the_roadmap_item(tmp_path, flags, item):
+    """The reference's flags parse (no argparse exit 2) and end in a
+    ``SystemExit`` that names the ROADMAP item that will bring them."""
+    from pointunet_tpu_torch.cli import serve
+
+    with pytest.raises(SystemExit) as e:
+        serve.main(["--inbox", str(tmp_path / "in"), "--outbox",
+                    str(tmp_path / "out"), "--device", "cpu", *flags])
+    assert e.value.code != 2 and item in str(e.value.code)
+
+
 def test_serve_without_device_needs_the_card(tmp_path, monkeypatch):
     """``--device`` defaults to cuda: on a host without a card the service
     fails on every case and writes no labels, instead of quietly serving
