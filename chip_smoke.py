@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Drives the port's paths (``pointunet_tpu_torch``): serving, the
-``segment`` CLI (reference-exact sliding-window path and ``--fast``) and
-training, at the full BraTS width, and fails (non-zero exit, no result
+``segment`` CLI (reference-exact sliding-window path and ``--fast``),
+point-net training and saliency-net training (``train_attention``), at
+the full BraTS width, and fails (non-zero exit, no result
 line) on any fault. Phases:
 
 1. build: compile the four CUDA kernels from the sources in this checkout
@@ -72,7 +73,24 @@ line) on any fault. Phases:
    CUDA events (pyramid, forward, backward, optimizer), peak memory, and
    exactly 8 scatter and 6 KNN kernel launches a step. The 8 scatter
    inputs of the first step (bf16 ct) are captured and held to the
-   checks of phase 3, with ct widened to f32 and as captured.
+   checks of phase 3, with ct widened to f32 and as captured;
+9. saliency: stage-1 training at ``brats_saliency_config`` (f32, gate
+   stride 1, patch (64,160,160), batch 2, remat, base_filter 16, depth 5)
+   on 3 synthetic 4x240x240x155 cases with a labelled tumour ball, loaded
+   by ``load_brats_case`` (crop on): 10 steps on one batch at lr 0.01,
+   with remat, without it, in bf16 with remat, and with remat and TF32
+   convs (PyTorch's default; TF32 is off elsewhere) (the step split by
+   CUDA events: forward+loss and backward per micro-batch, optimizer;
+   peak memory; one more step under the profiler: busy share, top ops),
+   finite losses whose last three average below the first and no kernel
+   launch; one step with ``POINTUNET_FASTCONV=pallas`` must
+   raise kernel 3's guard; ``fit`` of 5 steps with its evaluation on the
+   third case (a dice in [0, 1], a best checkpoint);
+   ``cli.train_attention --evaluate`` and ``--predict`` on it, on cuDNN
+   and on kernel 3 (exactly 19 launches a sliding window), maps of
+   (240, 240, 155, 2) f32 summing to 1 inside the crop box, argmax
+   agreement >= 0.999; ``cli.segment --saliency_checkpoint`` (6 KNN
+   launches).
 
 Every path is driven with the kernels' launch counts set to 0 just before
 it and read just after. Before the last line it prints the card
@@ -113,6 +131,8 @@ WINDOW = (64, 160, 160)        # the f32 path's saliency window (Z, Y, X)
 WINDOW_C = 8                   # channels of the windowed-scatter bar
 RECALL_QUERIES = 65_536
 TRAIN_STEPS = 10
+SALIENCY_STEPS = 10            # saliency train steps a variant
+SALIENCY_TOP_OPS = 8           # ops printed from a profiled saliency step
 N_CLOUDS = 4                   # run_brats: 3 to train on, 1 to validate
 CLOUD_POINTS = 600_000         # labelled points of a prepared cloud
 # the card's peaks (NVIDIA H100 SXM data sheet): device memory bytes/s,
@@ -656,10 +676,13 @@ def _scatter_summary(bars, steps, launches, by_path) -> dict:
     }
 
 
-def _write_cases(inbox: str, n_cases: int = N_CASES) -> None:
+def _write_cases(inbox: str, n_cases: int = N_CASES,
+                 tumour: bool = False) -> None:
     """``n_cases`` BraTS-layout cases: the bench's ellipsoid brain with
     normal noise, gzipped at level 1 once and copied (level 9 takes
-    minutes)."""
+    minutes). ``tumour`` adds a ball (radius 24) whose voxels are raised
+    by 3 in every modality and a ``_seg`` volume labelling it (4 inside
+    radius 10, 1 inside 16, 2 to the rim)."""
     from pointunet_tpu_torch.data import nifti
     from pointunet_tpu_torch.data.loader import BRATS_MODALITIES
 
@@ -670,11 +693,20 @@ def _write_cases(inbox: str, n_cases: int = N_CASES) -> None:
         + ((yy - 122.0) / 88.0) ** 2
         + ((zz - 76.0) / 70.0) ** 2
     ) < 1.0
+    vols = {}
+    d = np.sqrt((xx - 140.0) ** 2 + (yy - 100.0) ** 2 + (zz - 80.0) ** 2)
+    if tumour:
+        vols["seg"] = np.select([d < 10, d < 16, d < 24], [4, 1, 2], 0).astype(
+            np.uint8)
+    for mod in BRATS_MODALITIES:
+        vol = rng.standard_normal(VOLUME).astype(np.float32)
+        if tumour:
+            vol += 3.0 * (d < 24)
+        vols[mod] = vol * brain
     first = "BraTS_smoke_000"
     os.makedirs(os.path.join(inbox, first))
-    for mod in BRATS_MODALITIES:
-        vol = rng.standard_normal(VOLUME).astype(np.float32) * brain
-        path = os.path.join(inbox, first, f"{first}_{mod}.nii")
+    for name, vol in vols.items():
+        path = os.path.join(inbox, first, f"{first}_{name}.nii")
         nifti.save(vol, path)
         with open(path, "rb") as f, gzip.open(
             path + ".gz", "wb", compresslevel=1
@@ -684,10 +716,10 @@ def _write_cases(inbox: str, n_cases: int = N_CASES) -> None:
     for i in range(1, n_cases):
         case = f"BraTS_smoke_{i:03d}"
         os.makedirs(os.path.join(inbox, case))
-        for mod in BRATS_MODALITIES:
+        for name in vols:
             shutil.copyfile(
-                os.path.join(inbox, first, f"{first}_{mod}.nii.gz"),
-                os.path.join(inbox, case, f"{case}_{mod}.nii.gz"),
+                os.path.join(inbox, first, f"{first}_{name}.nii.gz"),
+                os.path.join(inbox, case, f"{case}_{name}.nii.gz"),
             )
 
 
@@ -1172,6 +1204,317 @@ def phase_train(dev) -> dict:
             "peak_gb": peak, "step_cases": step_cases}
 
 
+def _self_device_ms(entry) -> float:
+    """Self device time (ms) of a profiler key-average entry."""
+    total = getattr(entry, "self_device_time_total", None)
+    if total is None:
+        total = entry.self_cuda_time_total
+    return total / 1e3
+
+
+def _timed_saliency_step(trainer, state, batch):
+    """One ``train_step``, split by CUDA events recorded at its marks:
+    (loss, {part: ms, summed over the micro-batches; "step": ms from
+    before ``prepare`` to the end of the optimizer})."""
+    start = torch.cuda.Event(enable_timing=True)
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    start.record()
+    _, m = trainer.train_step(state, *batch, mark=mark)
+    torch.cuda.synchronize()
+    split, prev = {}, start
+    for name, ev in marks:
+        split[name] = split.get(name, 0.0) + prev.elapsed_time(ev)
+        prev = ev
+    split["step"] = start.elapsed_time(marks[-1][1])
+    return m["loss"], split
+
+
+def _saliency_steps(cfg, batch) -> dict:
+    """SALIENCY_STEPS updates of a fresh ``SaliencyTrainer`` on one batch,
+    each ``train_step`` split by CUDA events at its marks (step 0 is a
+    warm-up), and one more ``train_step`` under ``torch.profiler``.
+    Losses, the mean split of steps 1-9, their peak memory, and the
+    profiled step's wall, device busy time and top ops by self device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pointunet_tpu_torch.cli.profile_request import _busy_ms
+    from pointunet_tpu_torch.train.saliency import SaliencyTrainer
+
+    trainer = SaliencyTrainer(cfg, device="cuda")
+    state = trainer.init_state()
+    loss, _ = _timed_saliency_step(trainer, state, batch)
+    losses, splits = [loss], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(1, SALIENCY_STEPS):
+        loss, split = _timed_saliency_step(trainer, state, batch)
+        losses.append(loss)
+        splits.append(split)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    mean = {k: sum(sp[k] for sp in splits) / len(splits) for k in splits[0]}
+    # one more train_step under the profiler: wall, device busy share and
+    # the kernels that hold the most device time
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = trainer.train_step(state, *batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    losses.append(m["loss"])
+    busy = _busy_ms(prof)
+    kernels = sorted(
+        ((_self_device_ms(e), e.key) for e in prof.key_averages()),
+        reverse=True,
+    )[:SALIENCY_TOP_OPS]
+    del trainer, state, prof
+    torch.cuda.empty_cache()
+    return {"losses": losses, "split_ms": mean, "peak_gb": peak,
+            "profiled_wall_ms": wall, "busy_ms": busy,
+            "top_self_device_ms": [[k, v] for v, k in kernels]}
+
+
+def _check_maps(out: str, metas) -> dict:
+    """The ``--predict`` maps: (240, 240, 155, 2) f32, probabilities
+    summing to 1 within 1e-5 inside each case's crop box, zeros outside;
+    {case: (argmax inside the box)}."""
+    argmax = {}
+    for meta in metas:
+        arr = np.load(os.path.join(out, f"{meta['case_id']}.npy"))
+        (zlo, zhi), (ylo, yhi), (xlo, xhi) = meta["bbox"]
+        inside = arr[xlo:xhi, ylo:yhi, zlo:zhi]
+        outside = arr.copy()
+        outside[xlo:xhi, ylo:yhi, zlo:zhi] = 0
+        err = float(np.abs(inside.sum(-1) - 1).max())
+        if (arr.shape != VOLUME + (2,) or arr.dtype != np.float32
+                or not err <= 1e-5 or outside.any()):
+            raise AssertionError(
+                f"bad map {meta['case_id']}: {arr.shape} {arr.dtype}, max "
+                f"|sum - 1| {err:.3e}, nonzero outside the box "
+                f"{bool(outside.any())}")
+        argmax[meta["case_id"]] = inside.argmax(-1)
+    return argmax
+
+
+def phase_saliency(dev) -> dict:
+    """Stage-1 training at the reference's full configuration
+    (``brats_saliency_config``: f32, gate stride 1, patch (64,160,160),
+    batch 2, remat, base_filter 16, depth 5) on 3 synthetic BraTS cases
+    with a labelled tumour ball, loaded with the brain crop: train steps
+    in three variants, the kernel-3 guard, ``fit``, ``train_attention
+    --evaluate`` and ``--predict`` on cuDNN and on kernel 3, and
+    ``segment --saliency_checkpoint``."""
+    import dataclasses
+
+    from pointunet_tpu_torch.cli import segment, train_attention
+    from pointunet_tpu_torch.core.checkpoint import BestMetricCheckpointer
+    from pointunet_tpu_torch.core.config import brats_saliency_config
+    from pointunet_tpu_torch.data.loader import (
+        find_brats_cases,
+        load_brats_case,
+    )
+    from pointunet_tpu_torch.data.sampler import patch_batches
+    from pointunet_tpu_torch.ops.window import window_positions
+    from pointunet_tpu_torch.train.saliency import SaliencyTrainer
+
+    out = {}
+    cfg = brats_saliency_config()
+    with tempfile.TemporaryDirectory() as tmp:
+        basedir = os.path.join(tmp, "brats")
+        t0 = time.perf_counter()
+        _write_cases(basedir, N_CASES, tumour=True)
+        loaded = [load_brats_case(c) for c in find_brats_cases(basedir)]
+        records, metas = [r for r, _ in loaded], [m for _, m in loaded]
+        windows = sum(
+            int(np.prod([len(window_positions(n, p, st)) for n, p, st in zip(
+                r.label.shape, cfg.inference_patch_size,
+                (cfg.xstep, cfg.ystep, cfg.zstep))]))
+            for r in records)
+        log(f"[saliency] wrote and loaded {len(records)} cases in "
+            f"{time.perf_counter() - t0:.1f} s: cropped (Z, Y, X) "
+            f"{records[0].label.shape}, tumour voxels "
+            f"{int(records[0].label.sum())}; {windows} sliding windows of "
+            f"{cfg.inference_patch_size} over the {len(records)}")
+
+        # 1. train steps on one fixed batch, three variants
+        batch = next(patch_batches(records[:2], cfg.patch_size,
+                                   cfg.batch_size, np.random.default_rng(0),
+                                   cfg.data_sampling))
+        variants = {}
+        # the reference's config, remat off, the reference bench's bf16
+        # config, and (TF32 on for cuDNN's convs, PyTorch's default) the
+        # reference's config as a user's f32 run takes it
+        for tag, vcfg, tf32 in (
+            ("remat", cfg, False),
+            ("no_remat", dataclasses.replace(cfg, remat=False), False),
+            ("bf16_remat", dataclasses.replace(cfg, use_bfloat16=True), False),
+            ("remat_tf32_convs", cfg, True),
+        ):
+            reset_launches()
+            torch.backends.cudnn.allow_tf32 = tf32
+            try:
+                res = _saliency_steps(vcfg, batch)
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+            res["launches"] = read_launches()
+            variants[tag] = res
+            split = res["split_ms"]
+            kind = ("bf16 convs" if vcfg.use_bfloat16 else
+                    "f32, TF32 convs" if tf32 else "true f32: TF32 off")
+            log(f"[saliency] train {tag} (lr {cfg.base_lr}, batch "
+                f"{cfg.batch_size} of {cfg.patch_size}, {kind}): losses "
+                + ", ".join(f"{v:.6f}" for v in res["losses"])
+                + "; split ms (mean of steps 1-9, summed over the 2 "
+                "micro-batches) " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in split.items())
+                + f"; peak memory {res['peak_gb']:.3f} GB; kernel launches "
+                f"{res['launches']}")
+            log(f"[saliency] train {tag}, one profiled train_step: wall "
+                f"{res['profiled_wall_ms']:.3f} ms, device busy "
+                f"{res['busy_ms']:.3f} ms (share "
+                f"{res['busy_ms'] / res['profiled_wall_ms']:.4f}); top self "
+                "device ms: " + "; ".join(
+                    f"{k[:70]} {v:.3f}" for k, v in res["top_self_device_ms"]))
+            losses = res["losses"]
+            if (not all(np.isfinite(losses))
+                    or not np.mean(losses[-3:]) < losses[0]
+                    or any(res["launches"].values())):
+                raise AssertionError(
+                    f"saliency train {tag}: losses {losses}, launches "
+                    f"{res['launches']}")
+        out["train"] = variants
+
+        # 2. the guard: no silent training through kernel 3
+        trainer = SaliencyTrainer(cfg, device="cuda")
+        state = trainer.init_state()
+        with _env("POINTUNET_FASTCONV", "pallas"):
+            reset_launches()
+            try:
+                trainer.train_step(state, *batch)
+            except RuntimeError as e:
+                if "no backward" not in str(e):
+                    raise
+                message = str(e)
+            else:
+                raise AssertionError(
+                    "a train step with POINTUNET_FASTCONV=pallas did not "
+                    "raise")
+            guard_counts = read_launches()
+        log(f"[saliency] train step with POINTUNET_FASTCONV=pallas raised: "
+            f"{message!r}; kernel launches {guard_counts}")
+        if any(guard_counts.values()):
+            raise AssertionError(f"guard: launches {guard_counts}")
+        del trainer, state
+        torch.cuda.empty_cache()
+
+        # 3. fit: 5 steps, the epoch-end evaluation on the held-out case, a
+        # best checkpoint
+        fcfg = dataclasses.replace(cfg, steps_per_epoch=5, eval_epoch=1)
+        trainer = SaliencyTrainer(fcfg, device="cuda")
+        state = trainer.init_state()
+        ckpt = os.path.join(tmp, "ckpt")
+        logged = []
+
+        def fit_log(msg):
+            logged.append(msg)
+            log(f"[saliency] fit: {msg}")
+
+        reset_launches()
+        t0 = time.perf_counter()
+        trainer.fit(state, patch_batches(records[:2], cfg.patch_size,
+                                         cfg.batch_size,
+                                         np.random.default_rng(1),
+                                         cfg.data_sampling),
+                    records[2:], BestMetricCheckpointer(ckpt), fit_log,
+                    max_steps=5)
+        fit_counts = read_launches()
+        dice = [float(m.split(": ")[1].split()[0]) for m in logged
+                if m.startswith("eval mean dice")]
+        log(f"[saliency] fit: {state.step} steps and an evaluation in "
+            f"{time.perf_counter() - t0:.1f} s, dice {dice}, kernel "
+            f"launches {fit_counts}")
+        if (state.step != 5 or len(dice) != 1 or not 0.0 <= dice[0] <= 1.0
+                or BestMetricCheckpointer(ckpt).best_step() != 5
+                or any(fit_counts.values())):
+            raise AssertionError(f"fit: step {state.step}, dice {dice}, "
+                                 f"launches {fit_counts}")
+        out["fit"] = {"dice": dice[0], "launches": fit_counts}
+        del trainer, state
+        torch.cuda.empty_cache()
+
+        # 4. the CLI on that checkpoint, on cuDNN and on kernel 3
+        common = ["--basedir", basedir, "--logdir", os.path.join(tmp, "logs"),
+                  "--checkpoint_path", ckpt, "--device", "cuda"]
+        cli, maps = {}, {}
+        for route in ("", "pallas"):
+            for mode in ("--evaluate", "--predict"):
+                maps_dir = os.path.join(tmp, f"maps_{route or 'cudnn'}")
+                extra = ["--outPros_path", maps_dir] if mode == "--predict" \
+                    else []
+                with _env("POINTUNET_FASTCONV", route):
+                    reset_launches()
+                    t0 = time.perf_counter()
+                    train_attention.main(common + [mode] + extra)
+                    torch.cuda.synchronize()
+                    counts = read_launches()
+                secs = time.perf_counter() - t0
+                want = CONVS_PER_FORWARD * windows if route else 0
+                tag = f"{mode[2:]}_{route or 'cudnn'}"
+                log(f"[saliency] train_attention {mode} (POINTUNET_FASTCONV="
+                    f"{route or 'unset'}): {secs:.2f} s for {len(records)} "
+                    f"cases, {windows} windows; kernel launches {counts} "
+                    f"(expected {want} = {CONVS_PER_FORWARD} x {windows} "
+                    f"conv launches)")
+                if (counts["conv3d_3x3"] != want or counts["knn_cell_window"]
+                        or counts["scatter_sorted"]
+                        or counts["windowed_scatter"]):
+                    raise AssertionError(f"train_attention {mode}: {counts}")
+                cli[tag] = {"seconds": secs, "launches": counts}
+                if mode == "--predict":
+                    maps[route] = _check_maps(maps_dir, metas)
+        agree = float(np.mean([(maps[""][c] == maps["pallas"][c]).mean()
+                               for c in maps[""]]))
+        log(f"[saliency] --predict maps {VOLUME + (2,)} f32, sums 1 "
+            f"within 1e-5 inside the crop box, zeros outside; argmax with "
+            f"kernel 3 agrees with cuDNN's on {agree:.6f} of the boxes' "
+            f"voxels")
+        if not agree >= 0.999:
+            raise AssertionError(f"kernel 3 / cuDNN argmax agreement {agree}")
+        out["cli"], out["windows"], out["argmax_agreement"] = cli, windows, agree
+
+        # 5. segment with the trained saliency checkpoint
+        one = os.path.join(tmp, "one")
+        case = os.path.basename(find_brats_cases(basedir)[0])
+        shutil.copytree(os.path.join(basedir, case), os.path.join(one, case))
+        seg_out = os.path.join(tmp, "seg")
+        reset_launches()
+        seconds = segment.main([
+            "--data_3D_path", one, "--outSegment_path", seg_out,
+            "--n_point", str(N_POINTS), "--device", "cuda",
+            "--saliency_checkpoint", ckpt,
+        ])
+        torch.cuda.synchronize()
+        counts = read_launches()
+        lab = _check_labels(os.path.join(seg_out, f"{case}.nii.gz"))
+        log(f"[saliency] segment --saliency_checkpoint: {seconds[case]:.3f} "
+            f"s, labels {lab.shape} {lab.dtype} values "
+            f"{sorted(set(np.unique(lab).tolist()))}, kernel launches "
+            f"{counts}")
+        if (counts["knn_cell_window"] != LAUNCHES_PER_VOLUME
+                or counts["conv3d_3x3"] or counts["scatter_sorted"]
+                or counts["windowed_scatter"]):
+            raise AssertionError(f"segment with the checkpoint: {counts}")
+        out["segment"] = {"seconds": seconds[case], "launches": counts}
+    torch.cuda.empty_cache()
+    return out
+
+
 def _conv_summary(conv, launches, by_path) -> dict:
     """Kernel 3's entry of the ``kernels`` line: the sums over the 19
     convs of one bf16 ROI forward (the serve path's), the f32 window's
@@ -1222,6 +1565,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     segment = phase_segment(dev)
     train = phase_train(dev)
+    saliency = phase_saliency(dev)
 
     # each path's launches, counted from 0 over its run; "launches" is
     # the count on the path that carries the kernel in this run: the
@@ -1235,6 +1579,10 @@ def main() -> int:
         "segment_fast": segment["segment_fast"]["launches"],
         "train": train.pop("launches"),
         "windowed_gather": gather_counts,
+        "train_saliency": saliency["train"]["remat"]["launches"],
+        "predict_attention": saliency["cli"]["predict_pallas"]["launches"],
+        "evaluate_attention": saliency["cli"]["evaluate_pallas"]["launches"],
+        "segment_saliency_checkpoint": saliency["segment"]["launches"],
     }
 
     def by_path(name):
@@ -1251,6 +1599,7 @@ def main() -> int:
     scatter["train"] = train
     conv_entry = _conv_summary(conv, paths["segment"]["conv3d_3x3"],
                                by_path("conv3d_3x3"))
+    conv_entry["saliency"] = saliency
     window["launches_by_path"] = by_path("windowed_scatter")
     entries = [kernel, scatter, conv_entry, window]
     for entry in entries:                  # nvcc seconds of its source

@@ -5,12 +5,11 @@ its module paths and names so that each counterpart is easy to find. It
 imports ``torch`` and never ``jax``, and nothing of the reference: its
 host I/O (``data/``) is a numpy-only copy of ``pointunet_tpu.data``'s.
 
-The slice ported so far is the fused single-volume inference path
-(``pipeline/fused.py``): the saliency U-Net in an ROI window, on-device
-context-aware sampling, the cell-sorted KNN decimation pyramid (whose
-large levels run the hand-written CUDA kernel in
-``csrc/knn_cell_window.cu``), the RandLA-Net forward and the scatter of
-labels back to the voxel grid, driven by ``cli/serve.py``.
+Ported so far: the fused single-volume inference path
+(``pipeline/fused.py``) that ``cli/serve.py`` drives, the ``segment`` CLI
+on both of its paths, point-net training (``cli/run_brats.py``) and
+saliency-net training (``cli/train_attention.py``). The reference's four
+Pallas kernels have hand-written CUDA counterparts in ``csrc/``.
 """
 
 __version__ = "0.1.0"

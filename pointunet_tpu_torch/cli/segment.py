@@ -17,9 +17,12 @@ in the environment routes the saliency net's 3x3x3 convs through kernel 3
 on both paths.
 
 Weights: random from seed 0, as the reference's when it is given no
-checkpoint; ``--pointseg_checkpoint`` restores the best checkpoint the
-port's trainer wrote (``cli/run_brats.py``). ``--saliency_checkpoint`` is
-refused: the port has no saliency trainer to write one yet.
+checkpoint; ``--saliency_checkpoint`` and ``--pointseg_checkpoint``
+restore the best checkpoint the port's saliency trainer
+(``cli/train_attention.py``) or point trainer (``cli/run_brats.py``)
+wrote. A directory with no such checkpoint ends the run with a message:
+the JAX package's orbax checkpoints are not read (ROADMAP queue 1, item
+2).
 """
 from __future__ import annotations
 
@@ -47,6 +50,7 @@ from ..pipeline.end2end import PointUnetPipeline
 from ..pipeline.fused import FusedPointUnet
 from ..pipeline.postprocess import postprocess_brats
 from ..train.pointseg import PointSegTrainer
+from ..train.saliency import SaliencyTrainer
 
 
 class Pipeline(NamedTuple):
@@ -80,25 +84,29 @@ def build_pipeline(args) -> Pipeline:
             use_bfloat16=bf16, sa_gate_stride=stride
         )
         pcfg = pancreas_pointseg_config(num_points=args.n_point)
-    if args.saliency_checkpoint:
-        raise SystemExit(
-            "--saliency_checkpoint: the port cannot load saliency "
-            "checkpoints yet: neither the JAX package's nor its own, as it "
-            "has no saliency trainer (ROADMAP queue 1, items 2 and 3)"
-        )
     gen = torch.Generator().manual_seed(0)
     saliency = init_saliency_unet(scfg, gen)
     pointseg = init_randlanet(pcfg, gen)
+    if args.saliency_checkpoint:
+        saliency = _restore(args.saliency_checkpoint,
+                            SaliencyTrainer(scfg, device="cpu"))
     if args.pointseg_checkpoint:
-        state = PointSegTrainer(pcfg, device="cpu").init_state()
-        if BestMetricCheckpointer(args.pointseg_checkpoint).restore_best(
-            state
-        ) is None:
-            raise SystemExit(
-                f"no checkpoint found under {args.pointseg_checkpoint}"
-            )
-        pointseg = state.model.eval()
+        pointseg = _restore(args.pointseg_checkpoint,
+                            PointSegTrainer(pcfg, device="cpu"))
     return Pipeline(saliency, pointseg, scfg, pcfg)
+
+
+def _restore(directory: str, trainer):
+    """The model of the best checkpoint under ``directory``, restored into
+    a CPU state of ``trainer``, in eval mode; exits when there is none."""
+    state = trainer.init_state()
+    if BestMetricCheckpointer(directory).restore_best(state) is None:
+        raise SystemExit(
+            f"no checkpoint found under {directory} (the port reads its "
+            "own trainers' checkpoints; reading the JAX package's is "
+            "ROADMAP queue 1, item 2)"
+        )
+    return state.model.eval()
 
 
 def main(argv=None) -> Dict[str, float]:

@@ -10,15 +10,15 @@ in the outbox are skipped, so the service is restart-safe.
 Usage:
     python -m pointunet_tpu_torch.cli.serve --inbox in/ --outbox out/ \
         [--once] [--device cuda] [--roi X Y Z] [--n_point N] \
-        [--pointseg_checkpoint DIR]
+        [--saliency_checkpoint DIR] [--pointseg_checkpoint DIR]
 
 ``--once`` drains the current inbox and exits; without it the service
 polls every ``--poll_s`` seconds. The models come from
 ``cli/segment.py:build_pipeline`` on its ``--fast`` path: random weights
-from seed 0, and ``--pointseg_checkpoint`` restores the best checkpoint
-the port's trainer wrote, as ``segment`` does. The reference's
-``--dataset pancreas`` and ``--saliency_checkpoint`` are taken and
-refused with the ROADMAP item that will bring them.
+from seed 0; ``--saliency_checkpoint`` and ``--pointseg_checkpoint``
+restore the best checkpoint the port's saliency or point trainer wrote,
+as ``segment`` does. The reference's ``--dataset pancreas`` is taken and
+refused with the ROADMAP item that will bring it.
 """
 from __future__ import annotations
 

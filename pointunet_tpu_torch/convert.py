@@ -20,6 +20,11 @@ to the port's trainer: ``params``/``batch_stats`` as above, optax's Adam
 moments ``mu/<path>``/``nu/<path>`` (keyed like ``params``, same leaf
 transposes) into ``torch.optim.Adam``'s ``exp_avg``/``exp_avg_sq``, its
 ``count`` into Adam's ``step``, and the trainer's ``step``.
+``convert_saliency_train_state`` does the same for a reference
+``SaliencyTrainState``: optax's momentum ``trace/<path>`` into
+``torch.optim.SGD``'s ``momentum_buffer`` (the two parameter groups of
+``train/saliency.py:make_optimizer``), and the schedule's ``count``, which
+the port's schedule reads as the trainer's ``step``.
 """
 from __future__ import annotations
 
@@ -30,7 +35,8 @@ import torch
 
 from .core.config import PointSegConfig, SaliencyConfig
 from .models.randlanet import RandLANet
-from .models.saliency_unet import SaliencyUNet
+from .models.saliency_unet import SaliencyUNet, UNet3D
+from .train.saliency import decay_split, make_optimizer
 
 _LEAVES = {
     "params": {"kernel": "weight", "scale": "weight", "bias": "bias"},
@@ -91,10 +97,66 @@ def convert_randlanet(
 
 
 def convert_saliency(
-    flat: Dict[str, np.ndarray], config: SaliencyConfig
+    flat: Dict[str, np.ndarray], config: SaliencyConfig,
+    attention: bool = True,
 ) -> Dict[str, torch.Tensor]:
-    """``SaliencyUNet`` state_dict from flat reference variables."""
-    return convert_variables(flat, SaliencyUNet(config))
+    """``SaliencyUNet`` (``attention``) or ``UNet3D`` state_dict from flat
+    reference variables."""
+    return convert_variables(
+        flat, (SaliencyUNet if attention else UNet3D)(config)
+    )
+
+
+def _split_state(flat: Dict[str, np.ndarray], moments) -> tuple:
+    """A flat reference train state -> (variables, {moment: {params/...:
+    value}}, {"count", "step"}); raises on any other entry."""
+    variables: Dict[str, np.ndarray] = {}
+    groups: Dict[str, Dict[str, np.ndarray]] = {m: {} for m in moments}
+    scalars = {}
+    for key, value in flat.items():
+        head, _, rest = key.partition("/")
+        if head in ("params", "batch_stats"):
+            variables[key] = value
+        elif head in moments and rest:
+            groups[head]["params/" + rest] = value
+        elif key in ("count", "step"):
+            scalars[key] = int(np.asarray(value))
+        else:
+            raise KeyError(f"unconvertible train-state entry {key!r}")
+    if set(scalars) != {"count", "step"}:
+        raise KeyError(f"train state lacks {sorted({'count', 'step'} - set(scalars))}")
+    return variables, groups, scalars
+
+
+def convert_saliency_train_state(
+    flat: Dict[str, np.ndarray], model: torch.nn.Module,
+) -> dict:
+    """A flat reference saliency train state (``params/...``,
+    ``trace/...``, ``count``, ``step``) -> ``{"model": state_dict,
+    "optimizer": SGD state_dict, "step": int}`` for ``model`` (a
+    ``SaliencyUNet`` or ``UNet3D``, whose config gives the weight decay,
+    so the groups are the trainer's own), which
+    ``SaliencyTrainState.load_state_dict`` takes. The port keeps one
+    counter, read by the schedule; a state whose ``count`` differs from
+    its ``step`` (the reference's trainer advances both together) is
+    refused, as is any key or shape mismatch."""
+    variables, groups, scalars = _split_state(flat, ("trace",))
+    if scalars["count"] != scalars["step"]:
+        raise ValueError(
+            f"schedule count {scalars['count']} differs from step "
+            f"{scalars['step']}"
+        )
+    buffers = convert_leaves(groups["trace"], dict(model.named_parameters()))
+    opt_state = make_optimizer(model, model.config.weight_decay).state_dict()
+    order = [name for group in decay_split(model) for name in group]
+    opt_state["state"] = {
+        i: {"momentum_buffer": buffers[name]} for i, name in enumerate(order)
+    }
+    return {
+        "model": convert_variables(variables, model),
+        "optimizer": opt_state,
+        "step": scalars["step"],
+    }
 
 
 def convert_train_state(
@@ -106,22 +168,7 @@ def convert_train_state(
     "optimizer": Adam state_dict, "step": int}`` for ``model``, which
     ``TrainState.load_state_dict`` takes. Raises on any key or shape
     mismatch."""
-    groups: Dict[str, Dict[str, np.ndarray]] = {
-        "variables": {}, "mu": {}, "nu": {},
-    }
-    scalars = {}
-    for key, value in flat.items():
-        head, _, rest = key.partition("/")
-        if head in ("params", "batch_stats"):
-            groups["variables"][key] = value
-        elif head in ("mu", "nu") and rest:
-            groups[head]["params/" + rest] = value
-        elif key in ("count", "step"):
-            scalars[key] = int(np.asarray(value))
-        else:
-            raise KeyError(f"unconvertible train-state entry {key!r}")
-    if set(scalars) != {"count", "step"}:
-        raise KeyError(f"train state lacks {sorted({'count', 'step'} - set(scalars))}")
+    variables, groups, scalars = _split_state(flat, ("mu", "nu"))
     params = dict(model.named_parameters())
     moments = {
         which: convert_leaves(groups[which], params) for which in ("mu", "nu")
@@ -137,7 +184,7 @@ def convert_train_state(
         for i, name in enumerate(params)
     }
     return {
-        "model": convert_variables(groups["variables"], model),
+        "model": convert_variables(variables, model),
         "optimizer": opt_state,
         "step": scalars["step"],
     }

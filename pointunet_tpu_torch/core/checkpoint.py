@@ -8,7 +8,8 @@ the state's ``state_dict()`` returns (for the point trainer: the model's
 state_dict, Adam's state, the step and the dropout generator's state),
 written with ``torch.save`` and read back with ``weights_only=True``.
 ``restore*(template)`` loads into ``template`` (its ``load_state_dict``)
-and returns it. Reading the reference's orbax checkpoints is not ported.
+and returns it, or returns None when there is no snapshot. Reading the
+reference's orbax checkpoints is not ported.
 """
 from __future__ import annotations
 
@@ -85,10 +86,17 @@ class BestMetricCheckpointer:
         return self.restore(step, template)
 
     def restore_best(self, template: Any) -> Optional[Any]:
+        """The snapshot ``best.json`` names (pinned slot first), else the
+        latest when there is no ``best.json``; None when the directory
+        holds no ``.pt`` snapshot at all, as an orbax directory of the JAX
+        package, which has a ``best.json``. A best step whose snapshot is
+        missing beside others raises FileNotFoundError."""
         step = self.best_step()
         if step is None:
             return self.restore_latest(template)
         pinned = os.path.join(self._best_dir, f"{step}.pt")
         if os.path.exists(pinned):
             return self._load(pinned, template)
+        if self.latest_step() is None and not _steps(self._best_dir):
+            return None
         return self.restore(step, template)

@@ -59,7 +59,7 @@ class SpatialAttention3D(FlaxNamed):
 
 class ChannelWiseAttention3D(FlaxNamed):
     """GAP -> dense(C/4, relu) -> dense(C, sigmoid) -> multiply. The dense
-    layers run in f32, as in the reference."""
+    layers run in at least f32 (f32 for bf16 input), as in the reference."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -67,6 +67,7 @@ class ChannelWiseAttention3D(FlaxNamed):
         self.child("Dense", nn.Linear(channels // 4, channels), "fc2")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        att = x.mean(dim=(2, 3, 4), dtype=torch.float32)       # (B, C)
+        att = x.mean(dim=(2, 3, 4),                            # (B, C)
+                     dtype=torch.promote_types(x.dtype, torch.float32))
         att = torch.sigmoid(self.fc2(F.relu(self.fc1(att))))
         return x * att.to(x.dtype)[:, :, None, None, None]

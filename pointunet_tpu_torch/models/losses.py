@@ -1,14 +1,21 @@
-"""Point-segmentation losses (``pointunet_tpu/models/losses.py``).
+"""Segmentation losses (``pointunet_tpu/models/losses.py``).
 
-The reference masks ignored points with a static-shape masked mean, and
-so does the port. ``weighted_cross_entropy`` divides the weighted sum by
-the COUNT of valid points, not by the sum of their weights, so it is not
-``F.cross_entropy(weight=...)``. The saliency net's volumetric losses are
-not ported yet.
+Point net: the reference masks ignored points with a static-shape masked
+mean, and so does the port. ``weighted_cross_entropy`` divides the
+weighted sum by the COUNT of valid points, not by the sum of their
+weights, so it is not ``F.cross_entropy(weight=...)``.
+
+Saliency net: V-Net soft dice (squared denominator) over softmax
+probabilities, with the per-voxel weight broadcast over the classes, the
+generalised (Sudre) dice, and their mixup forms against soft targets.
+``saliency_dice_loss`` and ``saliency_dice_loss_mixup`` take the port's
+channels-first logits (B, C, D, H, W) (and a mixup target in the same
+layout) and compute in f32; the per-sample functions take probabilities
+(..., V, C), any leading batch axes.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -79,3 +86,89 @@ def point_dice_weighted(
     num = 2.0 * (w * onehot * logits).sum(0)
     den = (w * logits * logits).sum(0) + onehot.sum(0)
     return 1.0 - (num / (den + 1e-5)).mean()
+
+
+def _voxel_weight(weight_map: Optional[torch.Tensor], probs: torch.Tensor):
+    """(..., V) weights as (..., V, 1) in the probabilities' type; ones
+    when there is no map."""
+    if weight_map is None:
+        return torch.ones_like(probs[..., :1])
+    return weight_map.to(probs.dtype)[..., None]
+
+
+def soft_dice(
+    probs: torch.Tensor,                       # (..., V, C)
+    labels: torch.Tensor,                      # (..., V) int
+    weight_map: Optional[torch.Tensor] = None,  # (..., V)
+) -> torch.Tensor:
+    """V-Net soft dice with squared denominator, one value per sample."""
+    onehot = F.one_hot(labels.long(), probs.shape[-1]).to(probs.dtype)
+    return soft_dice_mixup(probs, onehot, weight_map)
+
+
+def soft_dice_mixup(
+    probs: torch.Tensor,                       # (..., V, C)
+    target: torch.Tensor,                      # (..., V, C) soft target
+    weight_map: Optional[torch.Tensor] = None,  # (..., V)
+) -> torch.Tensor:
+    """V-Net soft dice against a soft (mixed one-hot) target."""
+    w = _voxel_weight(weight_map, probs)
+    num = 2.0 * (w * target * probs).sum(-2)
+    den = (w * probs * probs).sum(-2) + (target * w).sum(-2)
+    return 1.0 - (num / (den + 1e-5)).mean(-1)
+
+
+def generalised_dice_loss(
+    probs: torch.Tensor,                       # (V, C)
+    labels: torch.Tensor,                      # (V,) int
+    weight_map: Optional[torch.Tensor] = None,  # (V,)
+) -> torch.Tensor:
+    """Generalised (Sudre) dice: class weights 1 / |ref|^2; a class absent
+    from the reference takes the largest weight of the present ones."""
+    onehot = F.one_hot(labels.long(), probs.shape[-1]).to(probs.dtype)
+    if weight_map is not None:
+        w = _voxel_weight(weight_map, probs)
+        onehot = onehot * w
+        probs = probs * w
+    ref_vol = onehot.sum(0)
+    seg_vol = probs.sum(0)
+    intersect = (onehot * probs).sum(0)
+    present = ref_vol > 0
+    weights = torch.where(present, 1.0 / (ref_vol * ref_vol),
+                          torch.zeros_like(ref_vol))
+    weights = torch.where(present, weights, weights.max())
+    num = 2.0 * (weights * intersect).sum()
+    den = (weights * (seg_vol + ref_vol)).sum() + 1e-6
+    return 1.0 - num / den
+
+
+def _softmax_voxels(logits: torch.Tensor) -> torch.Tensor:
+    """(B, C, D, H, W) logits -> (B, V, C) f32 softmax probabilities."""
+    b, c = logits.shape[:2]
+    return torch.softmax(logits.float().reshape(b, c, -1), dim=1).transpose(1, 2)
+
+
+def saliency_dice_loss(
+    logits: torch.Tensor,                      # (B, C, D, H, W)
+    weight: torch.Tensor,                      # (B, D, H, W) or (B, 1, D, H, W)
+    labels: torch.Tensor,                      # (B, D, H, W) int
+) -> torch.Tensor:
+    """Batch mean of the per-sample weighted soft dice over the softmax."""
+    b = logits.shape[0]
+    return soft_dice(
+        _softmax_voxels(logits), labels.reshape(b, -1), weight.reshape(b, -1)
+    ).mean()
+
+
+def saliency_dice_loss_mixup(
+    logits: torch.Tensor,                      # (B, C, D, H, W)
+    weight: torch.Tensor,                      # (B, D, H, W)
+    target: torch.Tensor,                      # (B, C, D, H, W) mixed one-hot
+) -> torch.Tensor:
+    """Batch mean of the per-sample mixup dice."""
+    b, c = logits.shape[:2]
+    return soft_dice_mixup(
+        _softmax_voxels(logits),
+        target.float().reshape(b, c, -1).transpose(1, 2),
+        weight.reshape(b, -1),
+    ).mean()

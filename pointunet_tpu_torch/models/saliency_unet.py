@@ -1,11 +1,18 @@
 """Saliency-attention 3-D U-Net (``pointunet_tpu/models/saliency_unet.py``).
 
-The attention variant (``SaliencyUNet``): residual encoder with filter
-growth, CFE atrous context blocks (rates 3/5/7) on the three deepest
-scales, channel attention on the fused high-level features and a spatial
-attention gate on the low-level ones. It runs channels-first: input
-(B, C, D, H, W), logits (B, num_class, D, H, W) in f32. Inference only;
-the plain ``UNet3D`` is not ported yet.
+* ``SaliencyUNet``, the attention variant: residual encoder with filter
+  growth, CFE atrous context blocks (rates 3/5/7) on the three deepest
+  scales, channel attention on the fused high-level features and a
+  spatial attention gate on the low-level ones;
+* ``UNet3D``, the plain variant with deep supervision.
+
+Both run channels-first: input (B, C, D, H, W), logits (B, num_class, D,
+H, W) in f32. With ``config.remat`` and the model in train mode, the
+blocks the reference wraps in ``nn.remat`` (every ConvNormRelu,
+UNetBlock, CFE3D, UpsampleConv and SpatialAttention3D call) run under
+``torch.utils.checkpoint`` when autograd records: their activations are
+recomputed in the backward instead of kept. The wrapping happens in
+``forward``, so parameter names are the same either way.
 """
 from __future__ import annotations
 
@@ -15,10 +22,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.config import SaliencyConfig
 from .attention3d import ChannelWiseAttention3D, SpatialAttention3D
-from .fastconv import Conv
+from .fastconv import Conv, _nearest_upsample
 from .naming import FlaxNamed
 from .norms import NormRelu
 
@@ -30,6 +38,14 @@ def _avg_pool(x: torch.Tensor, s: int) -> torch.Tensor:
     d, h, w = d // s, h // s, w // s
     x = x[:, :, :d * s, :h * s, :w * s]
     return x.reshape(b, c, d, s, h, s, w, s).mean(dim=(3, 5, 7))
+
+
+def _remat(enable: bool, module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``module(x)``; with ``enable`` and autograd recording, its
+    activations are recomputed in the backward (``checkpoint``)."""
+    if enable and torch.is_grad_enabled():
+        return checkpoint(module, x, use_reentrant=False)
+    return module(x)
 
 
 class ConvNormRelu(FlaxNamed):
@@ -120,7 +136,7 @@ class _Encoder(FlaxNamed):
 
     def __init__(self, config: SaliencyConfig):
         super().__init__()
-        cfg = config
+        cfg = self.config = config
         inorm = cfg.instance_norm
         dt = torch.bfloat16 if cfg.use_bfloat16 else None
         self.child("ConvNormRelu", ConvNormRelu(
@@ -158,15 +174,16 @@ class _Encoder(FlaxNamed):
             self.stages.append((match, block, down))
 
     def forward(self, x: torch.Tensor):
-        x = self.init(x)
+        remat = self.config.remat and self.training
+        x = _remat(remat, self.init, x)
         down = []
         for match, block, strided in self.stages:
             if match is not None:
-                x = match(x)
-            x = block(x)
+                x = _remat(remat, match, x)
+            x = _remat(remat, block, x)
             down.append(x)
             if strided is not None:
-                x = strided(x)
+                x = _remat(remat, strided, x)
         return down
 
 
@@ -216,36 +233,90 @@ class SaliencyUNet(FlaxNamed):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config
+        remat = cfg.remat and self.training
+
+        def run(module, h):
+            return _remat(remat, module, h)
+
         down = self.encoder(x)
-        c1 = self.c1(down[0])
-        c2 = self.c2(down[1])
-        c3, c4, c5 = (cfe(d) for cfe, d in zip(self.cfe, down[2:5]))
-        c5 = self.up_c5(c5)
-        c4 = self.up_c4(c4)
+        c1 = run(self.c1, down[0])
+        c2 = run(self.c2, down[1])
+        c3, c4, c5 = (run(cfe, d) for cfe, d in zip(self.cfe, down[2:5]))
+        c5 = run(self.up_c5, c5)
+        c4 = run(self.up_c4, c4)
         c345 = torch.cat([c3, c4, c5], dim=1)
         if self.ca is not None:
             c345 = self.ca(c345)
-        c345 = self.up_c345(self.c345(c345))
+        c345 = run(self.up_c345, run(self.c345, c345))
 
         if self.sa is not None:
             s = cfg.sa_gate_stride
             if s > 1:
                 # gate convs on a pooled input, the 1-channel gate resized
                 # back (broadcasts over C in the multiply below)
-                sa = self.sa(_avg_pool(c345, s))
+                sa = run(self.sa, _avg_pool(c345, s))
                 sa = F.interpolate(
                     sa, size=c345.shape[2:], mode="trilinear",
                     align_corners=False,
                 )
             else:
-                sa = self.sa(c345)
+                sa = run(self.sa, c345)
 
-        c2 = self.up_c2(c2)
-        c12 = self.c12(torch.cat([c1, c2], dim=1))
+        c2 = run(self.up_c2, c2)
+        c12 = run(self.c12, torch.cat([c1, c2], dim=1))
         if self.sa is not None:
             c12 = sa.to(c12.dtype) * c12
         fea = torch.cat([c12, c345], dim=1)
         return self.head(fea).float()
+
+
+class UNet3D(FlaxNamed):
+    """unet3d with deep supervision: (B, C, D, H, W) -> (B, num_class, D,
+    H, W) f32. The decoder upsamples, concatenates the encoder's feature
+    of the same scale and runs a 3x3x3 and a 1x1x1 ConvNormRelu; scales 1
+    and 2 of a depth-5 net add a 1x1x1 class prediction, summed and
+    upsampled on the way to full resolution."""
+
+    def __init__(self, config: SaliencyConfig):
+        super().__init__()
+        cfg = self.config = config
+        inorm = cfg.instance_norm
+        dt = torch.bfloat16 if cfg.use_bfloat16 else None
+        self.child("_Encoder", _Encoder(cfg), "encoder")
+        filters = self.encoder.channels
+        self.stages = []
+        for d in range(cfg.depth - 2, -1, -1):
+            f = filters[d]
+            up = self.child("UpsampleConv", UpsampleConv(
+                filters[d + 1], 2, f, inorm, dt
+            ))
+            conv = self.child("ConvNormRelu", ConvNormRelu(
+                2 * f, f, instance_norm=inorm, dtype=dt
+            ))
+            proj = self.child("ConvNormRelu", ConvNormRelu(
+                f, f, kernel=(1, 1, 1), instance_norm=inorm, dtype=dt
+            ))
+            pred = None
+            if cfg.deep_supervision and 0 < d < 3:
+                pred = self.child("Conv", Conv(f, cfg.num_class, 1, dtype=dt))
+            self.stages.append((up, conv, proj, pred))
+        self.child("Conv", Conv(filters[0], cfg.num_class, 1, dtype=dt), "head")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        remat = self.config.remat and self.training
+        down = self.encoder(x)
+        layer = down[-1]
+        deep = None
+        for (up, conv, proj, pred), skip in zip(self.stages, down[-2::-1]):
+            layer = torch.cat([_remat(remat, up, layer), skip], dim=1)
+            layer = _remat(remat, proj, _remat(remat, conv, layer))
+            if pred is not None:
+                p = pred(layer)
+                deep = _nearest_upsample(p if deep is None else deep + p, 2)
+        logits = self.head(layer)
+        if deep is not None:
+            logits = logits + deep
+        return logits.float()
 
 
 def _glorot_uniform_(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -259,12 +330,14 @@ def _glorot_uniform_(w: torch.Tensor, generator: torch.Generator) -> None:
 
 
 def init_saliency_unet(
-    config: SaliencyConfig, generator: torch.Generator
-) -> SaliencyUNet:
-    """A ``SaliencyUNet`` with the reference's initialisation drawn from
-    ``generator`` (CPU): glorot-uniform convs and dense layers, zero
-    biases, unit/zero norm affines. In eval mode."""
-    model = SaliencyUNet(config)
+    config: SaliencyConfig, generator: torch.Generator,
+    attention: bool = True,
+) -> nn.Module:
+    """A ``SaliencyUNet`` (``attention``) or ``UNet3D`` with the
+    reference's initialisation drawn from ``generator`` (CPU):
+    glorot-uniform convs and dense layers, zero biases, unit/zero norm
+    affines. In eval mode."""
+    model = (SaliencyUNet if attention else UNet3D)(config)
     for m in model.modules():
         if isinstance(m, (Conv, nn.Linear)):
             _glorot_uniform_(m.weight, generator)

@@ -15,6 +15,12 @@ channels-first layout: x (B, Cin, D, H, W), w (Cout, Cin, 3, 3, 3).
 * ``conv3d_3x3`` is the wrapper: the plain version for CPU tensors; for
   CUDA tensors it launches one of the three designs of ``csrc/conv3x3.cu``,
   as ``conv_path`` chooses, or raises. ``LAUNCHES`` counts its launches.
+  The kernel has no backward, as the reference's Pallas conv has none
+  (JAX gives ``pallas_call`` a JVP rule but no transpose rule, so
+  ``jax.grad`` through it raises): on CUDA tensors the wrapper raises
+  (``refuse_autograd``) when autograd would need the conv's gradient,
+  instead of returning an output with no ``grad_fn``. The CPU path stays
+  the plain, differentiable version.
 * ``conv_path(dtype, cin, cout, wd)``: ``"tensor_cores"`` for bf16 with
   Cin % 16 == 0 and an even W (every bf16 conv of the saliency net but
   the 4 -> 16 init conv), ``"tensor_cores_3xtf32"`` for f32 with Cin % 8
@@ -197,6 +203,22 @@ def conv3d_3x3_plain(
     return y
 
 
+def refuse_autograd(*tensors: Optional[torch.Tensor]) -> None:
+    """Raise ``RuntimeError`` when autograd records and any of
+    ``tensors`` requires grad: the kernel's output would carry no
+    gradient back to them."""
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    ):
+        raise RuntimeError(
+            "conv3d_3x3: the conv kernel has no backward, as the "
+            "reference's Pallas conv has none, and autograd needs this "
+            "conv's gradient; train with POINTUNET_FASTCONV unset (the "
+            "kernel serves inference under torch.inference_mode or "
+            "torch.no_grad)"
+        )
+
+
 def conv3d_3x3(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -206,7 +228,8 @@ def conv3d_3x3(
     bias of one type, f32 or bf16.
 
     CPU tensors take the plain version. CUDA tensors launch the kernel;
-    anything the kernel does not take raises."""
+    anything the kernel does not take raises, and so does a call whose
+    gradient autograd would need (``refuse_autograd``)."""
     global LAUNCHES
     tensors = (x, w) if bias is None else (x, w, bias)
     if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in tensors):
@@ -223,6 +246,7 @@ def conv3d_3x3(
         )
     if all(t.device.type == "cpu" for t in tensors):
         return conv3d_3x3_plain(x, w, bias)
+    refuse_autograd(*tensors)
     dev = x.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError(

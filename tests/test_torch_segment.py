@@ -214,7 +214,9 @@ def test_build_pipeline_configs(fast, stride, bf16):
 
 
 def test_checkpoint_flags(tmp_path):
-    with pytest.raises(SystemExit, match="queue 1, items 2 and 3"):
+    # a directory without a checkpoint of the port's (the JAX package's
+    # orbax checkpoints are ROADMAP queue 1, item 2)
+    with pytest.raises(SystemExit, match="no checkpoint found.*item 2"):
         segment.build_pipeline(_args(saliency_checkpoint=str(tmp_path)))
     with pytest.raises(SystemExit, match="no checkpoint"):
         segment.build_pipeline(_args(pointseg_checkpoint=str(tmp_path / "x")))

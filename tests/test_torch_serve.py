@@ -72,17 +72,67 @@ def test_serve_restores_a_pointseg_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("flags,item", [
     (["--dataset", "pancreas"], "ROADMAP queue 1, item 4"),
-    (["--saliency_checkpoint", "x"], "ROADMAP queue 1, items 2 and 3"),
+    (["--saliency_checkpoint", "{tmp}/orbax"], "ROADMAP queue 1, item 2"),
 ])
 def test_serve_refuses_with_the_roadmap_item(tmp_path, flags, item):
     """The reference's flags parse (no argparse exit 2) and end in a
-    ``SystemExit`` that names the ROADMAP item that will bring them."""
+    ``SystemExit`` that names the ROADMAP item that will bring them: the
+    Pancreas inbox, and a saliency checkpoint directory with no checkpoint
+    of the port's (an orbax directory of the JAX package has a
+    ``best.json`` and no ``.pt``)."""
     from pointunet_tpu_torch.cli import serve
 
+    (tmp_path / "orbax" / "7").mkdir(parents=True)
+    (tmp_path / "orbax" / "best.json").write_text('{"step": 7, "metric": 1}')
     with pytest.raises(SystemExit) as e:
         serve.main(["--inbox", str(tmp_path / "in"), "--outbox",
-                    str(tmp_path / "out"), "--device", "cpu", *flags])
+                    str(tmp_path / "out"), "--device", "cpu",
+                    *(f.format(tmp=tmp_path) for f in flags)])
     assert e.value.code != 2 and item in str(e.value.code)
+
+
+def test_serve_and_segment_restore_a_saliency_checkpoint(tmp_path):
+    """``--saliency_checkpoint`` restores what the port's saliency trainer
+    saved after a train step: ``serve`` (its ``--fast`` models) and
+    ``segment`` (its f32 models) hold the trained weights, and their nets'
+    logits equal the trained model's."""
+    import argparse
+
+    from pointunet_tpu_torch.cli import segment, serve
+    from pointunet_tpu_torch.core.checkpoint import BestMetricCheckpointer
+    from pointunet_tpu_torch.train.saliency import SaliencyTrainer
+
+    trainer = SaliencyTrainer(port_config.brats_saliency_config(),
+                              device="cpu")
+    state = trainer.init_state(seed=4)
+    rng = np.random.default_rng(4)
+    images = rng.standard_normal((1, 16, 32, 32, 4)).astype(np.float32)
+    labels = (images[..., 0] > 1).astype(np.int32)
+    trainer.train_step(state, images, np.ones(labels.shape, np.float32),
+                       labels)
+    BestMetricCheckpointer(str(tmp_path / "ckpt")).save(state, 1, 0.5)
+    x = torch.from_numpy(images).permute(0, 4, 1, 2, 3)
+    with torch.no_grad():
+        want = state.model.eval()(x)
+
+    inbox, outbox = tmp_path / "in", tmp_path / "out"
+    make_brats_case(str(inbox), "case_a")
+    server = serve.main([
+        "--inbox", str(inbox), "--outbox", str(outbox), "--once",
+        "--device", "cpu", "--n_point", "4096",
+        "--saliency_checkpoint", str(tmp_path / "ckpt"),
+    ])
+    assert server.served == 1
+    built = segment.build_pipeline(argparse.Namespace(
+        dataset="brats", fast=False, sa_stride=None, n_point=4096,
+        saliency_checkpoint=str(tmp_path / "ckpt"), pointseg_checkpoint=None,
+    ))
+    for model in (server.pipeline.saliency_model, built.saliency_model):
+        for name, t in state.model.state_dict().items():
+            assert torch.equal(model.state_dict()[name].cpu(), t), name
+    with torch.no_grad():
+        got = built.saliency_model.eval()(x)
+    assert torch.equal(got, want)
 
 
 def test_serve_without_device_needs_the_card(tmp_path, monkeypatch):
@@ -103,8 +153,8 @@ def test_serve_without_device_needs_the_card(tmp_path, monkeypatch):
 
 def test_port_imports_no_jax():
     """Neither the port (its serving, segmenting and training entry
-    points, its kernels' wrappers) nor chip_smoke.py loads JAX or any
-    module of the JAX package (``pointunet_tpu``)."""
+    points, both trainers, its kernels' wrappers) nor chip_smoke.py loads
+    JAX or any module of the JAX package (``pointunet_tpu``)."""
     code = (
         "import sys\n"
         "import pointunet_tpu_torch.cli.serve, pointunet_tpu_torch.convert\n"
@@ -124,6 +174,11 @@ def test_port_imports_no_jax():
         "import pointunet_tpu_torch.data.pointcloud\n"
         "import pointunet_tpu_torch.core.checkpoint\n"
         "import pointunet_tpu_torch.data.datasets\n"
+        "import pointunet_tpu_torch.train.saliency\n"
+        "import pointunet_tpu_torch.cli.train_attention\n"
+        "import pointunet_tpu_torch.data.sampler\n"
+        "import pointunet_tpu_torch.data.volume\n"
+        "import pointunet_tpu_torch.models.upsample\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in\n"
