@@ -90,7 +90,26 @@ line) on any fault. Phases:
    and on kernel 3 (exactly 19 launches a sliding window), maps of
    (240, 240, 155, 2) f32 summing to 1 inside the crop box, argmax
    agreement >= 0.999; ``cli.segment --saliency_checkpoint`` (6 KNN
-   launches).
+   launches);
+10. pancreas: the reference bench's Pancreas contract (1 CT channel, 2
+   classes, 180,000 points, no ROI): two synthetic CTs in HU
+   (256x256x160 and 256x256x144, a body oval with an organ ellipsoid
+   labelled 1) through ``cli.data_prepare_pancreas`` (8 loops a CT),
+   ``cli.run_pancreas --mode train --n_epoch 1 --fold 1`` (8 steps and
+   8 validation loops, at 4 KNN launches a pyramid and 5 sorted scatters
+   a step, as ``knn_searches`` and ``sorted_scatters`` derive them from
+   the config) and ``--mode test`` (a (160, 256, 256, 2) volume whose
+   180,000 filled voxels sum to 1 within 1e-3), ``cli.gen_segmentation``
+   and ``cli.evaluation`` for Pancreas (a Dice in [0, 1]);
+   ``cli.serve --dataset pancreas`` on both CTs (two pipes, labels in
+   {0, 1}), one request's warm latency, stage split, busy share and peak
+   memory, and with ``POINTUNET_FASTCONV=pallas`` (19 conv launches; each
+   of the 19 convs, the 1 -> 16 init conv among them, held to phase 6's
+   bf16 bars); then, on one training loop, the 4 searches held to phase
+   2's bars (recall >= 0.99), the pyramid and its brute-force level-2
+   searches timed, the 5 scatter inputs of one train step to
+   phase 3's, and 10 timed steps (split, peak memory, finite descending
+   losses) and one more under the profiler (busy share).
 
 Every path is driven with the kernels' launch counts set to 0 just before
 it and read just after. Before the last line it prints the card
@@ -135,6 +154,12 @@ SALIENCY_STEPS = 10            # saliency train steps a variant
 SALIENCY_TOP_OPS = 8           # ops printed from a profiled saliency step
 N_CLOUDS = 4                   # run_brats: 3 to train on, 1 to validate
 CLOUD_POINTS = 600_000         # labelled points of a prepared cloud
+# the Pancreas contract (bench.py:bench_e2e_pancreas): CTs (X, Y, Z) of
+# two slice counts, 180,000 points; fold 1 validates on 0001 (1 % 4)
+PANCREAS_CTS = {"0001": (256, 256, 160), "0002": (256, 256, 144)}
+PANCREAS_POINTS = 180_000
+PANCREAS_FOLD = 1
+PANCREAS_VAL_ID = "0001"
 # the card's peaks (NVIDIA H100 SXM data sheet): device memory bytes/s,
 # f32 operations/s outside the tensor cores, bf16 on the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -296,14 +321,39 @@ def _tie_aware_recall(sp, qp, got, k, chunk=512):
     return torch.cat(hits)
 
 
-def phase_kernel(dev):
+def knn_searches(cfg) -> int:
+    """Kernel-1 launches of one pyramid: a self search (k) and a 1-NN up
+    search at every level of more than ``GRID_THRESHOLD`` points."""
+    from pointunet_tpu_torch.ops.pyramid import GRID_THRESHOLD
+
+    sizes = cfg.level_sizes
+    return 2 * sum(sizes[i] > GRID_THRESHOLD
+                   for i in range(len(cfg.sub_sampling_ratio)))
+
+
+def sorted_scatters(cfg) -> int:
+    """Kernel-2 launches of one train step: the backward of each sorted
+    gather that passes the gate (``MIN_ROWS`` flat rows and a support of
+    more than ``GRID_THRESHOLD`` points): two self gathers (n_i x k rows)
+    and one pool gather (n_(i+1) x k rows) at each level i."""
+    from pointunet_tpu_torch.ops.pyramid import GRID_THRESHOLD
+    from pointunet_tpu_torch.ops.scatter_sorted import MIN_ROWS
+
+    sizes, k = cfg.level_sizes, cfg.k_n
+    return sum(
+        2 * (sizes[i] * k >= MIN_ROWS) + (sizes[i + 1] * k >= MIN_ROWS)
+        for i in range(len(cfg.sub_sampling_ratio))
+        if sizes[i] > GRID_THRESHOLD
+    )
+
+
+def _search_cases(xyz, n_searches: int, tag: str):
+    """Builds the pyramid of ``xyz`` with its cell-window searches
+    captured, and runs each through the KNN kernel (twice) and its plain
+    version: rows must be equal and the launches bit-equal. (one dict a
+    search, the pyramid)."""
     from pointunet_tpu_torch.ops import knn_cuda, pyramid
 
-    xyz, tumor = _kernel_cloud(dev)
-    log(f"[kernel] cloud {tuple(xyz.shape)}, tumor points "
-        f"{int(tumor.sum())}")
-
-    # capture the pyramid's six cell-window searches at their real shapes
     calls = []
     search = pyramid._search_sorted
 
@@ -317,8 +367,9 @@ def phase_kernel(dev):
     finally:
         pyramid._search_sorted = search
     torch.cuda.synchronize()
-    if len(calls) != LAUNCHES_PER_VOLUME:
-        raise AssertionError(f"expected 6 cell-window searches, got {len(calls)}")
+    if len(calls) != n_searches:
+        raise AssertionError(
+            f"expected {n_searches} cell-window searches, got {len(calls)}")
 
     lib = knn_cuda.load_library()
     lib.knn_cell_window_smem_bytes.argtypes = [ctypes.c_int]
@@ -353,7 +404,7 @@ def phase_kernel(dev):
         win = knn_cuda.tile_windows_plain(qc, cs, r)
         staged = (win[..., 1] - win[..., 0]).sum(1)
         chunks = int(-(-staged.max() // knn_cuda.CHUNK[k]))
-        log(f"[kernel] L{level} {kind} k={k} Ns={ns} Nq={nq} r={r}: rows "
+        log(f"[{tag}] L{level} {kind} k={k} Ns={ns} Nq={nq} r={r}: rows "
             f"differing {bad}, bit-equal relaunch {bitwise}, kernel {ms:.4f} "
             f"ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {by} "
             f"({nbytes} B, {cand} candidates); {win.shape[0]} tiles, "
@@ -374,22 +425,37 @@ def phase_kernel(dev):
             "candidates": cand, "tiles": win.shape[0],
             "staged_rows": int(staged.sum()), "longest_tile_chunks": chunks,
         })
+    log(f"[{tag}] the {n_searches} searches: kernel "
+        f"{sum(s['ms'] for s in shapes):.4f} ms, bound "
+        f"{sum(s['bound_ms'] for s in shapes):.4f} ms, plain "
+        f"{sum(s['plain_ms'] for s in shapes):.4f} ms")
+    return shapes, pyr
 
-    # recall of the level-0 self search against exact brute force, on a
-    # random query subset (rows are cell-sorted; tumor flags follow order)
+
+def _recall(pyr, flags, dev, tag: str, flagged_name: str):
+    """Tie-aware recall of the level-0 self search against exact brute
+    force on a random subset of queries: (overall, over the queries whose
+    ``flags`` (in the cloud's own row order) are set)."""
     gen = torch.Generator(device=dev).manual_seed(1)
     pts = pyr.xyz[0]
     sel = torch.randperm(pts.shape[0], generator=gen, device=dev)[:RECALL_QUERIES]
     hit = _tie_aware_recall(pts, pts[sel], pyr.neigh_idx[0][sel], K)
-    tmask = tumor[pyr.order.long()][sel].float()
+    fmask = flags[pyr.order.long()][sel].float()
     overall = float(hit.mean())
-    tum = float((hit * tmask).sum() / tmask.sum().clamp(min=1))
-    log(f"[kernel] the 6 searches: kernel "
-        f"{sum(s['ms'] for s in shapes):.4f} ms, bound "
-        f"{sum(s['bound_ms'] for s in shapes):.4f} ms, plain "
-        f"{sum(s['plain_ms'] for s in shapes):.4f} ms")
-    log(f"[kernel] tie-aware recall vs exact ({sel.numel()} queries): "
-        f"overall {overall:.6f}, tumor {tum:.6f}")
+    flagged = float((hit * fmask).sum() / fmask.sum().clamp(min=1))
+    log(f"[{tag}] tie-aware recall vs exact ({sel.numel()} queries): "
+        f"overall {overall:.6f}, {flagged_name} {flagged:.6f}")
+    return overall, flagged
+
+
+def phase_kernel(dev):
+    xyz, tumor = _kernel_cloud(dev)
+    log(f"[kernel] cloud {tuple(xyz.shape)}, tumor points "
+        f"{int(tumor.sum())}")
+
+    # the pyramid's six cell-window searches at their real shapes
+    shapes, pyr = _search_cases(xyz, LAUNCHES_PER_VOLUME, "kernel")
+    overall, tum = _recall(pyr, tumor, dev, "kernel", "tumor")
     if overall < 0.99 or tum < 0.995:
         raise AssertionError(f"recall below the bar: {overall}, {tum}")
     return {
@@ -620,12 +686,12 @@ def phase_window(dev, pyr) -> dict:
     }, counts
 
 
-def _step_cases(captured, r0) -> list:
+def _step_cases(captured, r0, expected=SCATTERS_PER_STEP) -> list:
     """The checks of phase 3 on the scatter inputs of one train step: each
     with ct widened to f32 and with ct as the step gave it (bf16)."""
-    if len(captured) != SCATTERS_PER_STEP:
+    if len(captured) != expected:
         raise AssertionError(
-            f"expected {SCATTERS_PER_STEP} sorted scatters in a train step, "
+            f"expected {expected} sorted scatters in a train step, "
             f"got {len(captured)}"
         )
     grids = [((r0 - 1) >> lvl) + 1 for lvl in range(3)]
@@ -676,6 +742,18 @@ def _scatter_summary(bars, steps, launches, by_path) -> dict:
     }
 
 
+def _save_gz(vol: np.ndarray, path: str) -> None:
+    """``vol`` as NIfTI at ``path`` (``.nii.gz``), gzipped at level 1
+    (level 9 takes minutes at these sizes)."""
+    from pointunet_tpu_torch.data import nifti
+
+    raw = path[:-len(".gz")]
+    nifti.save(vol, raw)
+    with open(raw, "rb") as f, gzip.open(path, "wb", compresslevel=1) as g:
+        shutil.copyfileobj(f, g)
+    os.remove(raw)
+
+
 def _write_cases(inbox: str, n_cases: int = N_CASES,
                  tumour: bool = False) -> None:
     """``n_cases`` BraTS-layout cases: the bench's ellipsoid brain with
@@ -683,7 +761,6 @@ def _write_cases(inbox: str, n_cases: int = N_CASES,
     minutes). ``tumour`` adds a ball (radius 24) whose voxels are raised
     by 3 in every modality and a ``_seg`` volume labelling it (4 inside
     radius 10, 1 inside 16, 2 to the rim)."""
-    from pointunet_tpu_torch.data import nifti
     from pointunet_tpu_torch.data.loader import BRATS_MODALITIES
 
     rng = np.random.default_rng(1)
@@ -706,13 +783,7 @@ def _write_cases(inbox: str, n_cases: int = N_CASES,
     first = "BraTS_smoke_000"
     os.makedirs(os.path.join(inbox, first))
     for name, vol in vols.items():
-        path = os.path.join(inbox, first, f"{first}_{name}.nii")
-        nifti.save(vol, path)
-        with open(path, "rb") as f, gzip.open(
-            path + ".gz", "wb", compresslevel=1
-        ) as g:
-            shutil.copyfileobj(f, g)
-        os.remove(path)
+        _save_gz(vol, os.path.join(inbox, first, f"{first}_{name}.nii.gz"))
     for i in range(1, n_cases):
         case = f"BraTS_smoke_{i:03d}"
         os.makedirs(os.path.join(inbox, case))
@@ -1515,6 +1586,372 @@ def phase_saliency(dev) -> dict:
     return out
 
 
+def _write_pancreas_cts(ct_dir: str, label_dir: str) -> None:
+    """``PANCREAS_<ID>.nii.gz`` CTs in HU and their ``label<ID>.nii.gz``:
+    the body oval of the reference bench's Pancreas contract (an elliptic
+    cylinder through the volume, ``bench.py:bench_e2e_pancreas``) of soft
+    tissue at 40 HU with seeded noise (sd 20 HU), air at -1000 HU outside,
+    and an organ ellipsoid (radii 20, 14, 12 voxels) raised by 100 HU and
+    labelled 1."""
+    rng = np.random.default_rng(4)
+    os.makedirs(ct_dir)
+    os.makedirs(label_dir)
+    for cid, shape in PANCREAS_CTS.items():
+        x, y, z = shape
+        xx, yy, zz = np.meshgrid(*(np.arange(n, dtype=np.float32)
+                                   for n in shape), indexing="ij", sparse=True)
+        body = (((xx - x / 2) / (0.46 * x)) ** 2
+                + ((yy - y / 2) / (0.4 * y)) ** 2) < 1.0
+        organ = (((xx - 0.55 * x) / 20) ** 2 + ((yy - 0.45 * y) / 14) ** 2
+                 + ((zz - z / 2) / 12) ** 2) < 1.0
+        ct = 40.0 + 20.0 * rng.standard_normal(shape, dtype=np.float32)
+        ct = np.where(body, ct, np.float32(-1000.0)) + np.float32(100.0) * organ
+        _save_gz(ct.astype(np.float32),
+                 os.path.join(ct_dir, f"PANCREAS_{cid}.nii.gz"))
+        _save_gz(organ.astype(np.uint8),
+                 os.path.join(label_dir, f"label{cid}.nii.gz"))
+
+
+def _pancreas_pipeline(tmp: str, searches: int, scatters: int) -> dict:
+    """``data_prepare_pancreas`` -> ``run_pancreas`` train and test ->
+    ``gen_segmentation`` -> ``evaluation`` on the CTs under ``tmp``."""
+    from pointunet_tpu_torch.cli import (
+        data_prepare_pancreas,
+        evaluation,
+        gen_segmentation,
+        run_pancreas,
+    )
+    from pointunet_tpu_torch.data import nifti
+
+    ct_dir, label_dir = os.path.join(tmp, "ct"), os.path.join(tmp, "label")
+    pc, res = os.path.join(tmp, "pc"), os.path.join(tmp, "npy")
+    loops = data_prepare_pancreas.N_LOOPS
+    t0 = time.perf_counter()
+    data_prepare_pancreas.main([
+        "--data_3D_path", ct_dir, "--label_path", label_dir,
+        "--outPC_path", pc, "--n_point", str(PANCREAS_POINTS),
+    ])
+    log(f"[pancreas] data_prepare_pancreas: {loops} loops of "
+        f"{PANCREAS_POINTS} points a CT in {time.perf_counter() - t0:.1f} s")
+
+    # one epoch over the training CT's loops, validated on the other's
+    logs = os.path.join(tmp, "logs")
+    common = ["--data_PC_path", pc, "--logdir", logs,
+              "--fold", str(PANCREAS_FOLD), "--n_point", str(PANCREAS_POINTS),
+              "--device", "cuda"]
+    reset_launches()
+    t0 = time.perf_counter()
+    state = run_pancreas.main(["--mode", "train", "--n_epoch", "1"] + common)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    with open(os.path.join(logs, "train_summary.txt")) as f:
+        miou = [float(line.split(":")[1]) for line in f
+                if line.startswith("Best m_IoU")]
+    log(f"[pancreas] run_pancreas --mode train --fold {PANCREAS_FOLD}: "
+        f"{state.step} steps + {loops} validation loops in "
+        f"{time.perf_counter() - t0:.1f} s, best mIoU {miou}; kernel "
+        f"launches {counts} ({searches} KNN a pyramid, {scatters} sorted "
+        f"scatters a step)")
+    if (state.step != loops or len(miou) != 1 or not np.isfinite(miou[0])
+            or counts["knn_cell_window"] != searches * 2 * loops
+            or counts["scatter_sorted"] != scatters * loops
+            or counts["conv3d_3x3"] or counts["windowed_scatter"]):
+        raise AssertionError(
+            f"run_pancreas train: {state.step} steps, mIoU {miou}, launches "
+            f"{counts}")
+    del state
+    torch.cuda.empty_cache()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    run_pancreas.main(["--mode", "test", "--results_path", res,
+                       "--data_3D_path", ct_dir] + common)
+    torch.cuda.synchronize()
+    test_counts = read_launches()
+    test_s = time.perf_counter() - t0
+    x, y, z = PANCREAS_CTS[PANCREAS_VAL_ID]
+    vol = np.load(os.path.join(res, f"{PANCREAS_VAL_ID}_loop_0.npy"))
+    filled = vol.sum(-1)
+    n_filled = int((filled > 0).sum())
+    err = float(np.abs(filled[filled > 0] - 1).max())
+    log(f"[pancreas] run_pancreas --mode test: {len(os.listdir(res))} "
+        f"volumes in {test_s:.1f} s, {vol.shape} {vol.dtype}, {n_filled} "
+        f"voxels with probabilities, max |sum - 1| {err:.3e}; kernel "
+        f"launches {test_counts}")
+    if (vol.shape != (z, y, x, 2) or not np.isfinite(vol).all()
+            or n_filled != PANCREAS_POINTS or not err <= 1e-3
+            or len(os.listdir(res)) != loops
+            or test_counts["knn_cell_window"] != searches * loops
+            or test_counts["scatter_sorted"] or test_counts["conv3d_3x3"]
+            or test_counts["windowed_scatter"]):
+        raise AssertionError(f"run_pancreas test: {vol.shape}, {n_filled} "
+                             f"voxels, err {err}, launches {test_counts}")
+    del vol, filled
+
+    seg = os.path.join(tmp, "seg")
+    gen_segmentation.main_pancreas(["--inPros_path", res,
+                                    "--outSegment_path", seg])
+    dice = evaluation.main([
+        "--dataset", "pancreas", "--path_truth", label_dir,
+        "--path_pred", seg, "--path_report", os.path.join(tmp, "report.csv"),
+    ])
+    lab = nifti.load(os.path.join(seg, f"{PANCREAS_VAL_ID}.nii.gz")).data
+    vals = sorted(set(np.unique(lab).tolist()))
+    log(f"[pancreas] gen_segmentation --pancreas: {os.listdir(seg)}, labels "
+        f"{lab.shape} {lab.dtype} values {vals}; evaluation --dataset "
+        f"pancreas: Dice {dice:.5f}")
+    if (lab.shape != (x, y, z) or lab.dtype != np.uint8
+            or not set(vals) <= {0, 1} or not 0.0 <= dice <= 1.0):
+        raise AssertionError(f"gen_segmentation/evaluation: {lab.shape} "
+                             f"{vals} dice {dice}")
+    shutil.rmtree(res)
+    return {"train_launches": counts, "test_launches": test_counts,
+            "best_miou": miou[0], "test_s": test_s, "dice": dice}
+
+
+def _pancreas_serve(tmp: str, dev, searches: int) -> dict:
+    """``serve --dataset pancreas --once`` on both CTs, then one CT's
+    request timed warm, split by stage, profiled (busy share) and with
+    peak memory, and again with the saliency net's convs on kernel 3:
+    each of the 19 at its Pancreas shape held to kernel 3's bars."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pointunet_tpu_torch.cli import serve
+    from pointunet_tpu_torch.cli.profile_request import _busy_ms
+    from pointunet_tpu_torch.data import nifti
+    from pointunet_tpu_torch.data.loader import load_pancreas_case
+
+    ct_dir, outbox = os.path.join(tmp, "ct"), os.path.join(tmp, "out")
+    reset_launches()
+    server = serve.main([
+        "--inbox", ct_dir, "--outbox", outbox, "--once",
+        "--dataset", "pancreas", "--n_point", str(PANCREAS_POINTS),
+        "--device", "cuda",
+    ])
+    torch.cuda.synchronize()
+    counts = read_launches()
+    log(f"[pancreas] serve --dataset pancreas: served {server.served} CTs, "
+        f"pipes for {sorted(server.pipes)}, kernel launches {counts}")
+    if (server.served != len(PANCREAS_CTS)
+            or sorted(server.pipes) != sorted(PANCREAS_CTS.values())
+            or counts["knn_cell_window"] != searches * len(PANCREAS_CTS)
+            or counts["scatter_sorted"] or counts["conv3d_3x3"]
+            or counts["windowed_scatter"]):
+        raise AssertionError(f"serve pancreas: {server.served} served, "
+                             f"pipes {sorted(server.pipes)}, {counts}")
+    latencies = {}
+    for cid, shape in PANCREAS_CTS.items():
+        case = f"PANCREAS_{cid}"
+        with open(os.path.join(outbox, case + ".json")) as f:
+            rec = json.load(f)
+        lab = nifti.load(os.path.join(outbox, case + ".nii.gz")).data
+        vals = set(np.unique(lab).tolist())
+        n_lab = int((lab > 0).sum())
+        log(f"[pancreas] {case}: latency {rec['latency_s']} s (first of its "
+            f"shape), labels {lab.shape} {lab.dtype} values {sorted(vals)}, "
+            f"labelled voxels {n_lab}")
+        if (lab.shape != shape or lab.dtype != np.uint8 or not vals <= {0, 1}
+                or n_lab > PANCREAS_POINTS or rec["voxels"] != n_lab):
+            raise AssertionError(f"bad labels for {case}")
+        latencies[case] = rec["latency_s"]
+
+    shape = PANCREAS_CTS[PANCREAS_VAL_ID]
+    pipe = server.pipes[shape]
+    mods = np.ascontiguousarray(np.transpose(load_pancreas_case(
+        os.path.join(ct_dir, f"PANCREAS_{PANCREAS_VAL_ID}.nii.gz")).image,
+        (0, 3, 2, 1)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe.segment_volume(mods, brats_labels=False)
+    warm_s = time.perf_counter() - t0
+    mods = torch.from_numpy(mods).to(dev)
+    stages = _stage_split(pipe, mods)
+    gen = torch.Generator(device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            pipe.segment_device(mods, gen.manual_seed(0))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    busy = _busy_ms(prof)
+    del prof
+    log(f"[pancreas] warm request {shape}: segment_volume {warm_s:.3f} s; "
+        "stage split (ms, mean of 3): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+        + f"; profiled segment_device wall {wall:.3f} ms, device busy "
+        f"{busy:.3f} ms (share {busy / wall:.4f}), peak memory {peak:.3f} GB")
+
+    with _env("POINTUNET_FASTCONV", "pallas"):
+        reset_launches()
+        with torch.inference_mode():
+            pipe.segment_device(mods, gen.manual_seed(0))
+        torch.cuda.synchronize()
+        pallas_counts = read_launches()
+        stages_pallas = _stage_split(pipe, mods)
+    log(f"[pancreas] with POINTUNET_FASTCONV=pallas: one request's kernel "
+        f"launches {pallas_counts}; stage split (ms, mean of 3): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages_pallas.items()))
+    if (pallas_counts["conv3d_3x3"] != CONVS_PER_FORWARD
+            or pallas_counts["knn_cell_window"] != searches
+            or pallas_counts["scatter_sorted"]
+            or pallas_counts["windowed_scatter"]):
+        raise AssertionError(f"serve pancreas with kernel 3: {pallas_counts}")
+
+    # the 19 eligible convs of this request's saliency forward: the whole
+    # CT, padded to the net's depth-5 stride, as the attention stage
+    # feeds it
+    vol = mods.permute(0, 3, 2, 1)[None]
+    zp, yp, xp = (-(-n // 16) * 16 for n in vol.shape[2:])
+    vol = torch.nn.functional.pad(
+        vol, (0, xp - vol.shape[4], 0, yp - vol.shape[3], 0,
+              zp - vol.shape[2])).contiguous()
+    calls = _capture_convs(pipe.saliency_model, vol)
+    del vol
+    if len(calls) != CONVS_PER_FORWARD:
+        raise AssertionError(f"pancreas: {len(calls)} eligible convs")
+    cases = []
+    while calls:
+        xc, wc, bc = calls.pop(0)
+        with torch.inference_mode():
+            cases.append(_conv_case(f"pancreas bf16 #{len(cases)}", xc, wc, bc))
+        del xc, wc, bc
+        torch.cuda.empty_cache()
+    sums = {k: sum(c[k] for c in cases)
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms", "ops",
+                      "bytes")}
+    sums["bound_by"] = bound_by(sums["bytes"], sums["ops"], BF16_OPS_S)
+    log(f"[pancreas] the 19 bf16 convs of one request at {tuple(mods.shape)}:"
+        f" kernel {sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f} ms, "
+        f"F.conv3d {sums['library_ms']:.4f} ms, bound {sums['bound_ms']:.4f} "
+        f"ms by {sums['bound_by']} ({sums['ops'] / 1e12:.3f} TFLOP)")
+    del server, pipe, mods
+    torch.cuda.empty_cache()
+    return {"serve_launches": counts, "pallas_launches": pallas_counts,
+            "latency_s": latencies, "warm_s": warm_s, "stages_ms": stages,
+            "stages_pallas_ms": stages_pallas, "profiled_wall_ms": wall,
+            "busy_ms": busy, "peak_gb": peak,
+            "conv": {"sum": sums, "shapes": cases}}
+
+
+def phase_pancreas(dev) -> dict:
+    """The Pancreas contract of the reference bench
+    (``bench.py:bench_e2e_pancreas``): two synthetic CTs,
+    ``data_prepare_pancreas`` -> ``run_pancreas`` -> ``gen_segmentation``
+    -> ``evaluation``, ``serve --dataset pancreas`` (with kernel 3 and its
+    19 convs at the Pancreas shapes), then on one training loop kernel 1
+    at the pyramid's searches with its recall, kernel 2 on the scatter
+    inputs of one train step, and TRAIN_STEPS timed steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pointunet_tpu_torch.cli.profile_request import _busy_ms
+    from pointunet_tpu_torch.cli.profile_train import timed_step
+    from pointunet_tpu_torch.core.config import pancreas_pointseg_config
+    from pointunet_tpu_torch.data.datasets import PancreasPointDataset
+    from pointunet_tpu_torch.models.randlanet import search_grid
+    from pointunet_tpu_torch.ops import pyramid
+    from pointunet_tpu_torch.ops.knn import knn
+    from pointunet_tpu_torch.train.pointseg import PointSegTrainer
+
+    cfg = pancreas_pointseg_config(num_points=PANCREAS_POINTS)
+    searches, scatters = knn_searches(cfg), sorted_scatters(cfg)
+    log(f"[pancreas] level sizes {cfg.level_sizes}: {searches} KNN kernel "
+        f"launches a pyramid, {scatters} sorted scatters a train step")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _write_pancreas_cts(os.path.join(tmp, "ct"), os.path.join(tmp, "label"))
+        log(f"[pancreas] wrote CTs {PANCREAS_CTS} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        out = _pancreas_pipeline(tmp, searches, scatters)
+        out.update(_pancreas_serve(tmp, dev, searches))
+        xyz, feats, labels = next(PancreasPointDataset(
+            os.path.join(tmp, "pc"), PANCREAS_FOLD, cfg).train_iter())
+    xyz = torch.from_numpy(xyz).to(dev)
+    feats = torch.from_numpy(feats).to(dev)
+    labels = torch.from_numpy(labels).to(dev).long()
+
+    shapes, pyr = _search_cases(xyz[0], searches, "pancreas")
+    overall, organ = _recall(pyr, labels[0] > 0, dev, "pancreas",
+                              "organ")
+    if overall < 0.99:
+        raise AssertionError(f"pancreas recall below the bar: {overall}")
+    # the pyramid whole, and its brute-force searches at the first level
+    # at or below GRID_THRESHOLD (plain torch, ops/knn.py)
+    brute = knn_searches(cfg) // 2
+    pyr_ms = cuda_ms(lambda: pyramid.build_pyramid(xyz[0], K, RATIOS), 5)
+    self_ms = cuda_ms(lambda: knn(pyr.xyz[brute], pyr.xyz[brute], K), 5)
+    up_ms = cuda_ms(lambda: knn(pyr.xyz[brute + 1], pyr.xyz[brute], 1), 5)
+    log(f"[pancreas] pyramid of {tuple(xyz[0].shape)}: {pyr_ms:.3f} ms; "
+        f"of it the brute-force L{brute} searches ({pyr.xyz[brute].shape[0]} "
+        f"points): self k={K} {self_ms:.3f} ms, up k=1 {up_ms:.3f} ms")
+    del pyr
+    torch.cuda.empty_cache()
+
+    trainer = PointSegTrainer(cfg, device="cuda")
+    state = trainer.init_state()
+    losses, splits = [], []
+    for i in range(TRAIN_STEPS):
+        reset_launches()
+        with _capture() if i == 0 else contextlib.nullcontext() as captured:
+            m, split = timed_step(trainer, state, xyz, feats, labels)
+        step_counts = read_launches()
+        per_step = (step_counts["knn_cell_window"],
+                    step_counts["scatter_sorted"])
+        losses.append(float(m["loss"]))
+        splits.append(split)
+        log(f"[pancreas] step {i}: loss {losses[-1]:.6f}, "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+            + f"; KNN launches {per_step[0]}, scatter launches {per_step[1]}")
+        if per_step != (searches, scatters):
+            raise AssertionError(f"pancreas launches per step {per_step}")
+        if i == 0:
+            step_cases = _step_cases(captured, search_grid(xyz)[2], scatters)
+            del captured
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    warm = splits[1:]
+    mean = {k: sum(sp[k] for sp in warm) / len(warm) for k in warm[0]}
+    log("[pancreas] train step split (ms, mean of steps 1-9): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in mean.items())
+        + f"; step {sum(mean.values()):.3f} ms; peak memory (steps 1-9) "
+        f"{peak:.3f} GB")
+    if (not all(np.isfinite(losses))
+            or not np.mean(losses[-3:]) < losses[0]):
+        raise AssertionError(f"pancreas losses do not descend: {losses}")
+    # one more train_step under the profiler: how much of the step's wall
+    # the card is busy
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(state, xyz, feats, labels)
+        torch.cuda.synchronize()
+        step_wall = (time.perf_counter() - t0) * 1e3
+    step_busy = _busy_ms(prof)
+    log(f"[pancreas] one profiled train_step: wall {step_wall:.3f} ms, "
+        f"device busy {step_busy:.3f} ms (share "
+        f"{step_busy / step_wall:.4f})")
+    del trainer, state, prof
+    torch.cuda.empty_cache()
+    out.update({
+        "pyramid_ms": pyr_ms, "brute_self_ms": self_ms,
+        "brute_up_ms": up_ms,
+        "knn": {"shapes": shapes, "recall_overall": overall,
+                "recall_organ": organ,
+                "ms_searches": sum(sh["ms"] for sh in shapes),
+                "bound_ms_searches": sum(sh["bound_ms"] for sh in shapes)},
+        "step_cases": step_cases, "losses": losses, "split_ms": mean,
+        "train_peak_gb": peak, "train_profiled_wall_ms": step_wall,
+        "train_busy_ms": step_busy, "searches": searches,
+        "scatters_per_step": scatters,
+    })
+    return out
+
+
 def _conv_summary(conv, launches, by_path) -> dict:
     """Kernel 3's entry of the ``kernels`` line: the sums over the 19
     convs of one bf16 ROI forward (the serve path's), the f32 window's
@@ -1566,6 +2003,7 @@ def main() -> int:
     segment = phase_segment(dev)
     train = phase_train(dev)
     saliency = phase_saliency(dev)
+    pancreas = phase_pancreas(dev)
 
     # each path's launches, counted from 0 over its run; "launches" is
     # the count on the path that carries the kernel in this run: the
@@ -1583,6 +2021,9 @@ def main() -> int:
         "predict_attention": saliency["cli"]["predict_pallas"]["launches"],
         "evaluate_attention": saliency["cli"]["evaluate_pallas"]["launches"],
         "segment_saliency_checkpoint": saliency["segment"]["launches"],
+        "serve_pancreas": pancreas.pop("serve_launches"),
+        "serve_pancreas_pallas_request": pancreas.pop("pallas_launches"),
+        "train_pancreas": pancreas.pop("train_launches"),
     }
 
     def by_path(name):
@@ -1600,6 +2041,9 @@ def main() -> int:
     conv_entry = _conv_summary(conv, paths["segment"]["conv3d_3x3"],
                                by_path("conv3d_3x3"))
     conv_entry["saliency"] = saliency
+    conv_entry["pancreas"] = pancreas.pop("conv")
+    scatter["pancreas"] = pancreas.pop("step_cases")
+    kernel["pancreas"] = pancreas
     window["launches_by_path"] = by_path("windowed_scatter")
     entries = [kernel, scatter, conv_entry, window]
     for entry in entries:                  # nvcc seconds of its source

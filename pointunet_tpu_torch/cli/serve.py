@@ -1,24 +1,31 @@
 """Segmentation service: watch a directory, segment arrivals
 (``pointunet_tpu/cli/serve.py``).
 
-The process builds the models once, then polls an inbox for new
-BraTS-layout case folders (``<case>/<case>_{t1ce,t1,flair,t2}.nii.gz``, as
-``data.loader.find_brats_cases`` reads them) and writes ``<case>.nii.gz``
-labels plus a ``<case>.json`` latency record to the outbox. Cases already
-in the outbox are skipped, so the service is restart-safe.
+The process builds the models once, then polls an inbox for new cases
+and writes ``<case>.nii.gz`` labels plus a ``<case>.json`` latency record
+to the outbox. Cases already in the outbox are skipped, so the service
+is restart-safe. The inbox holds, by ``--dataset``:
+
+* ``brats`` (default): BraTS-layout case folders
+  (``<case>/<case>_{t1ce,t1,flair,t2}.nii.gz``, as
+  ``data.loader.find_brats_cases`` reads them); labels in BraTS values
+  {0, 1, 2, 4};
+* ``pancreas``: CT files ``PANCREAS_<ID>.nii*`` (the case is the file
+  name before ``.nii``), each read by ``data.loader.load_pancreas_case``
+  (HU clipped to [-100, 240], scaled to [0, 1]); labels {0, 1}. CTs
+  differ in their slice count: one pipe is built a volume shape.
 
 Usage:
     python -m pointunet_tpu_torch.cli.serve --inbox in/ --outbox out/ \
-        [--once] [--device cuda] [--roi X Y Z] [--n_point N] \
-        [--saliency_checkpoint DIR] [--pointseg_checkpoint DIR]
+        [--dataset brats|pancreas] [--once] [--device cuda] [--roi X Y Z] \
+        [--n_point N] [--saliency_checkpoint DIR] [--pointseg_checkpoint DIR]
 
 ``--once`` drains the current inbox and exits; without it the service
 polls every ``--poll_s`` seconds. The models come from
-``cli/segment.py:build_pipeline`` on its ``--fast`` path: random weights
-from seed 0; ``--saliency_checkpoint`` and ``--pointseg_checkpoint``
-restore the best checkpoint the port's saliency or point trainer wrote,
-as ``segment`` does. The reference's ``--dataset pancreas`` is taken and
-refused with the ROADMAP item that will bring it.
+``cli/segment.py:build_pipeline`` on its ``--fast`` path (the dataset's
+configs): random weights from seed 0; ``--saliency_checkpoint`` and
+``--pointseg_checkpoint`` restore the best checkpoint the port's saliency
+or point trainer wrote, as ``segment`` does.
 """
 from __future__ import annotations
 
@@ -31,7 +38,11 @@ import traceback
 import numpy as np
 
 from ..data import nifti
-from ..data.loader import find_brats_cases, load_brats_volume
+from ..data.loader import (
+    find_brats_cases,
+    load_brats_volume,
+    load_pancreas_case,
+)
 from ..pipeline.fused import FusedPointUnet
 from .segment import build_pipeline
 
@@ -77,16 +88,31 @@ class Server:
             )
         return self.pipes[shape]
 
+    def cases(self):
+        """(case, loader) for every case in the inbox; a loader returns
+        the (C, X, Y, Z) f32 volume. Loading waits for the caller, so that
+        a half-written case fails inside its ``try``."""
+        inbox = self.args.inbox
+        if self.args.dataset == "brats":
+            for case_dir in find_brats_cases(inbox):
+                yield (os.path.basename(case_dir.rstrip("/")),
+                       lambda d=case_dir: load_brats_volume(d))
+            return
+        for fname in sorted(os.listdir(inbox)):
+            if fname.startswith("PANCREAS_") and ".nii" in fname:
+                path = os.path.join(inbox, fname)
+                yield (fname.split(".nii")[0], lambda p=path: np.transpose(
+                    load_pancreas_case(p).image, (0, 3, 2, 1)))
+
     def drain(self) -> None:
         """Serve every inbox case that has no record in the outbox yet."""
         outbox = self.args.outbox
-        for case_dir in find_brats_cases(self.args.inbox):
-            case = os.path.basename(case_dir.rstrip("/"))
+        for case, load in self.cases():
             if (os.path.exists(os.path.join(outbox, case + ".json"))
                     or self.failures.get(case, 0) >= 3):
                 continue
             try:
-                mods = load_brats_volume(case_dir)
+                mods = load()
                 pipe = self.pipe(tuple(mods.shape[1:]))
                 latency = _serve_case(pipe, case, mods, outbox,
                                       self.args.dataset == "brats")
@@ -109,7 +135,7 @@ def main(argv=None) -> Server:
     per-shape ``pipes``) once ``--once`` has drained the inbox."""
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--inbox", type=str, required=True,
-                        help="directory of incoming case folders")
+                        help="directory of incoming cases")
     parser.add_argument("--outbox", type=str, required=True)
     parser.add_argument("--dataset", choices=["brats", "pancreas"],
                         default="brats")
@@ -125,11 +151,6 @@ def main(argv=None) -> Server:
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    if args.dataset == "pancreas":
-        raise SystemExit(
-            "--dataset pancreas: the port has no Pancreas inbox, loader or "
-            "configs on this path yet (ROADMAP queue 1, item 4)"
-        )
     args.fast, args.sa_stride = True, None   # build_pipeline's serving path
 
     server = Server(args)

@@ -2,13 +2,15 @@
 
 The directory layout of the reference's prep tools:
 
-  <root>/original_ply/<ID>.ply            full clouds
+  <root>/original_ply/<ID>.ply            full clouds (BraTS) or pre-sampled
+                                          loops (Pancreas, <ID>_loop_<k>.ply)
   <root>/input0.01/<ID>_xyz_origin.npy    original int voxel coords
+                                          (Pancreas: <ID>_xyz_origin_loop_<k>.npy)
 
-Each epoch samples a fixed budget of points per cloud on the host
-(``context_aware_sample``) and yields (B=1, N, ...) numpy arrays; the
-trainer builds the KNN pyramid on the card. Only the BraTS dataset is
-ported; the Pancreas one waits for ``run_pancreas``.
+Each BraTS epoch samples a fixed budget of points per cloud on the host
+(``context_aware_sample``); Pancreas loops were sampled at prep time and
+are read whole. Both yield (B=1, N, ...) numpy arrays; the trainer builds
+the KNN pyramid on the card.
 """
 from __future__ import annotations
 
@@ -18,11 +20,16 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from ..core.config import PointSegConfig, brats_pointseg_config
+from ..core.config import (
+    PointSegConfig,
+    brats_pointseg_config,
+    pancreas_pointseg_config,
+)
 from .ply import read_ply
 from .pointcloud import PointCloud, context_aware_sample
 
 BRATS_FEATURES = ("t1ce", "t1", "flair", "t2")
+PANCREAS_FEATURES = ("value",)
 
 
 def _read_cloud(path: str, feature_names) -> PointCloud:
@@ -118,4 +125,54 @@ class BraTSPointDataset(PointCloudDataset):
                 feats[idx][None],
                 cloud.labels[idx][None],
                 origin[idx],
+            )
+
+
+class PancreasPointDataset(PointCloudDataset):
+    """Pancreas: pre-sampled loops, 4-fold cross-validation; a loop whose
+    ID's first four digits are ``fold`` modulo 4 validates."""
+
+    feature_names = PANCREAS_FEATURES
+
+    def __init__(
+        self,
+        root: str,
+        fold: int = 3,
+        config: Optional[PointSegConfig] = None,
+        seed: int = 0,
+    ):
+        super().__init__(config or pancreas_pointseg_config(), seed)
+        self.root = root
+        self.fold = fold
+        self.tree_path = os.path.join(root, "input0.01")
+        all_files = sorted(glob.glob(os.path.join(root, "original_ply", "*.ply")))
+        for path in all_files:
+            cloud_id = os.path.basename(path)[:4]
+            split = "validation" if int(cloud_id) % 4 == fold else "training"
+            self.files[split].append(path)
+
+    def _iter_split(self, split, shuffle, sample=False):
+        # the loops were sampled at prep time: read whole, never re-sampled
+        return super()._iter_split(split, shuffle, sample=False)
+
+    def xyz_origin(self, name: str) -> np.ndarray:
+        base, loop = name.split("_loop_")
+        return np.load(
+            os.path.join(self.tree_path, f"{base}_xyz_origin_loop_{loop}.npy")
+        )
+
+    def test_iter(self):
+        """Yield (name, xyz, feats, labels, xyz_origin) for every point of
+        each validation loop."""
+        for path in self.files["validation"]:
+            name = os.path.basename(path)[:-4]
+            cloud = _read_cloud(path, self.feature_names)
+            origin = self.xyz_origin(name)
+            feats = np.concatenate([cloud.xyz, cloud.features], -1)
+            yield (
+                name,
+                cloud.xyz[None],
+                feats[None],
+                cloud.labels[None],
+                origin,
             )

@@ -13,8 +13,9 @@ Four stages, each a callable of its own so that they can be timed apart:
   4. ``_pointseg_scatter``: the RandLA-Net forward, argmax, and the scatter
      of labels back to the (Z, Y, X) voxel grid.
 
-``segment_device`` chains them; ``segment_volume`` wraps it for numpy
-(C, X, Y, Z) input and (X, Y, Z) BraTS label output.
+``segment_device`` chains them; ``segment_batch_device`` runs it over a
+batch of volumes on one card; ``segment_volume`` wraps it for numpy
+(C, X, Y, Z) input and (X, Y, Z) label output.
 """
 from __future__ import annotations
 
@@ -198,6 +199,35 @@ class FusedPointUnet:
         return self._pointseg_scatter(
             pyramid, cloud.xyz, cloud.features, cloud.xyz_origin
         )
+
+    def segment_batch_device(
+        self,
+        modalities: torch.Tensor,     # (B, C, X, Y, Z) on the device
+        seeds,                        # B ints
+        mesh=None,
+    ) -> torch.Tensor:
+        """(B, C, X, Y, Z) -> (B, Z, Y, X) uint8 labels: ``segment_device``
+        on each volume in turn, on one card, volume b drawing its points
+        from a generator seeded with ``seeds[b]`` (the reference maps its
+        single-volume program over the batch). Spreading the batch over
+        several devices (``mesh``) is not ported (ROADMAP queue 1, item
+        6)."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "segment_batch_device: the multi-device batch (mesh=) is "
+                "not ported; it runs on one card (ROADMAP queue 1, item 6)"
+            )
+        seeds = [int(s) for s in seeds]
+        if len(seeds) != modalities.shape[0]:
+            raise ValueError(
+                f"segment_batch_device: {modalities.shape[0]} volumes and "
+                f"{len(seeds)} seeds"
+            )
+        return torch.stack([
+            self.segment_device(
+                m, torch.Generator(device=m.device).manual_seed(s))
+            for m, s in zip(modalities, seeds)
+        ])
 
     def segment_volume(
         self, modalities: np.ndarray, seed: int = 0, brats_labels: bool = True,

@@ -1,9 +1,15 @@
-"""Evaluation metrics (``pointunet_tpu/train/metrics.py``): numpy only.
+"""Evaluation metrics (``pointunet_tpu/train/metrics.py``): numpy and
+scipy on the host.
 
-The point trainer's part: confusion matrices, per-class IoU with the
-reference's absent-class fill, mean IoU and per-class Dice.
+Confusion matrices, per-class IoU with the reference's absent-class fill,
+mean IoU, binary and per-class Dice, and the BraTS composite regions (WT
+= labels {1, 2, 4}, TC = {1, 4}, ET = {4}) with their Dice and HD95 (the
+95th percentile of the symmetric surface distances, by scipy's Euclidean
+distance transform).
 """
 from __future__ import annotations
+
+from typing import Dict
 
 import numpy as np
 
@@ -57,3 +63,50 @@ def per_class_dice(
     return np.asarray(
         [binary_dice(pred == c, truth == c) for c in range(num_classes)]
     )
+
+
+# BraTS composite tumour regions over the original labels {0, 1, 2, 4}
+_BRATS_REGIONS = {
+    "WT": (1, 2, 4),
+    "TC": (1, 4),
+    "ET": (4,),
+}
+
+
+def brats_region_dice(pred: np.ndarray, truth: np.ndarray) -> Dict[str, float]:
+    """WT/TC/ET Dice over original BraTS labels (4 = enhancing)."""
+    out = {}
+    for name, labs in _BRATS_REGIONS.items():
+        out[name] = binary_dice(np.isin(pred, labs), np.isin(truth, labs))
+    return out
+
+
+def hausdorff95(pred: np.ndarray, truth: np.ndarray, spacing=None) -> float:
+    """95th-percentile symmetric surface distance by distance transforms:
+    0.0 when both masks are empty, inf when exactly one is (the BraTS
+    convention)."""
+    from scipy import ndimage
+
+    pred = np.asarray(pred) > 0
+    truth = np.asarray(truth) > 0
+    if not pred.any() and not truth.any():
+        return 0.0
+    if not pred.any() or not truth.any():
+        return float("inf")
+
+    def surface(mask):
+        return mask & ~ndimage.binary_erosion(mask)
+
+    sp = surface(pred)
+    st = surface(truth)
+    dt_truth = ndimage.distance_transform_edt(~st, sampling=spacing)
+    dt_pred = ndimage.distance_transform_edt(~sp, sampling=spacing)
+    all_d = np.concatenate([dt_truth[sp], dt_pred[st]])
+    return float(np.percentile(all_d, 95))
+
+
+def brats_region_hd95(pred: np.ndarray, truth: np.ndarray) -> Dict[str, float]:
+    out = {}
+    for name, labs in _BRATS_REGIONS.items():
+        out[name] = hausdorff95(np.isin(pred, labs), np.isin(truth, labs))
+    return out

@@ -71,15 +71,14 @@ def test_serve_restores_a_pointseg_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--dataset", "pancreas"], "ROADMAP queue 1, item 4"),
     (["--saliency_checkpoint", "{tmp}/orbax"], "ROADMAP queue 1, item 2"),
 ])
 def test_serve_refuses_with_the_roadmap_item(tmp_path, flags, item):
     """The reference's flags parse (no argparse exit 2) and end in a
-    ``SystemExit`` that names the ROADMAP item that will bring them: the
-    Pancreas inbox, and a saliency checkpoint directory with no checkpoint
-    of the port's (an orbax directory of the JAX package has a
-    ``best.json`` and no ``.pt``)."""
+    ``SystemExit`` that names the ROADMAP item that will bring them: a
+    saliency checkpoint directory with no checkpoint of the port's (an
+    orbax directory of the JAX package has a ``best.json`` and no
+    ``.pt``)."""
     from pointunet_tpu_torch.cli import serve
 
     (tmp_path / "orbax" / "7").mkdir(parents=True)
@@ -153,8 +152,9 @@ def test_serve_without_device_needs_the_card(tmp_path, monkeypatch):
 
 def test_port_imports_no_jax():
     """Neither the port (its serving, segmenting and training entry
-    points, both trainers, its kernels' wrappers) nor chip_smoke.py loads
-    JAX or any module of the JAX package (``pointunet_tpu``)."""
+    points, both trainers, its kernels' wrappers, the Pancreas path and
+    the offline prep and scoring tools) nor chip_smoke.py loads JAX or
+    any module of the JAX package (``pointunet_tpu``)."""
     code = (
         "import sys\n"
         "import pointunet_tpu_torch.cli.serve, pointunet_tpu_torch.convert\n"
@@ -179,6 +179,17 @@ def test_port_imports_no_jax():
         "import pointunet_tpu_torch.data.sampler\n"
         "import pointunet_tpu_torch.data.volume\n"
         "import pointunet_tpu_torch.models.upsample\n"
+        "import pointunet_tpu_torch.cli.run_pancreas\n"
+        "import pointunet_tpu_torch.cli.data_prepare_pancreas\n"
+        "import pointunet_tpu_torch.cli.data_prepare_brats\n"
+        "import pointunet_tpu_torch.cli.evaluation\n"
+        "import pointunet_tpu_torch.cli.gen_segmentation\n"
+        "import pointunet_tpu_torch.cli.gen_binary_map\n"
+        "import pointunet_tpu_torch.cli.fold_cv_report\n"
+        "import pointunet_tpu_torch.cli.cvt_ct\n"
+        "import pointunet_tpu_torch.cli.generate_kfold\n"
+        "import pointunet_tpu_torch.ops.subsample\n"
+        "import pointunet_tpu_torch.train.metrics\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in\n"
