@@ -109,7 +109,23 @@ line) on any fault. Phases:
    2's bars (recall >= 0.99), the pyramid and its brute-force level-2
    searches timed, the 5 scatter inputs of one train step to
    phase 3's, and 10 timed steps (split, peak memory, finite descending
-   losses) and one more under the profiler (busy share).
+   losses) and one more under the profiler (busy share);
+11. bridge: checkpoints of the JAX package. Seeded full-width weights of
+   both nets written as exported train states of the JAX package (the
+   layout ``export_jax_checkpoint.py`` writes, at step 7 with non-zero
+   moments) are restored by ``cli.serve --once --saliency_checkpoint
+   --pointseg_checkpoint`` on one case, on cuDNN and with
+   ``POINTUNET_FASTCONV=pallas``: labels bit-equal to the same weights
+   loaded directly, 6 KNN launches (and 19 conv launches); ``cli.run_brats
+   --mode train`` resumes an exported point-net state (its Adam moments
+   restored exactly) for 2 steps and 1 validation cloud and must end at
+   step 9 with 8 scatter launches a step; the committed checkpoints that
+   JAX wrote (``tests/fixtures/jax_export``) are restored in f32 and held
+   to their recorded JAX logits (point net within 1e-4 x max(1, max
+   |logit|), batch-norm UNet3D within atol 3e-4 + rtol 1e-4); the native
+   host library (``native.py``) is built, its grid subsampling of a
+   180,000-voxel cloud held equal to the numpy path, its ``knn_batch``
+   to brute force (tie-aware recall 1.0), both timed on the host.
 
 Every path is driven with the kernels' launch counts set to 0 just before
 it and read just after. Before the last line it prints the card
@@ -160,6 +176,14 @@ PANCREAS_CTS = {"0001": (256, 256, 160), "0002": (256, 256, 144)}
 PANCREAS_POINTS = 180_000
 PANCREAS_FOLD = 1
 PANCREAS_VAL_ID = "0001"
+# phase 11: the committed checkpoints JAX wrote, the exported train
+# states' step and the steps resumed from it, the native library's cloud
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "fixtures", "jax_export")
+RESUME_STEP = 7
+RESUME_STEPS = 2
+NATIVE_POINTS = PANCREAS_POINTS
+NATIVE_QUERIES = 4096          # knn_batch queries held to brute force
 # the card's peaks (NVIDIA H100 SXM data sheet): device memory bytes/s,
 # f32 operations/s outside the tensor cores, bf16 on the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -1150,9 +1174,9 @@ def phase_segment(dev) -> dict:
     return runs
 
 
-def _write_clouds(root: str, dev) -> list:
-    """N_CLOUDS prepared BraTS point clouds (``original_ply/<ID>.ply`` with
-    x, y, z, 4 modalities and class; ``input0.01/<ID>_xyz_origin.npy``):
+def _write_clouds(root: str, dev, n_clouds: int = N_CLOUDS) -> list:
+    """``n_clouds`` prepared BraTS point clouds (``original_ply/<ID>.ply``
+    with x, y, z, 4 modalities and class; ``input0.01/<ID>_xyz_origin.npy``):
     an all-voxel tumour ball plus random background, CLOUD_POINTS each."""
     from pointunet_tpu_torch.cli.profile_train import synthetic_cloud
     from pointunet_tpu_torch.data.ply import write_ply
@@ -1160,7 +1184,7 @@ def _write_clouds(root: str, dev) -> list:
     os.makedirs(os.path.join(root, "original_ply"))
     os.makedirs(os.path.join(root, "input0.01"))
     names = []
-    for i in range(N_CLOUDS):
+    for i in range(n_clouds):
         xyz, feats, labels = synthetic_cloud(dev, CLOUD_POINTS, seed=10 + i)
         xyz, feats = xyz[0].cpu().numpy(), feats[0].cpu().numpy()
         labels = labels[0].cpu().numpy().astype(np.uint8)
@@ -1952,6 +1976,322 @@ def phase_pancreas(dev) -> dict:
     return out
 
 
+def _flax_flat(named: dict) -> dict:
+    """Port tensors by state_dict name -> flat flax keys and layouts, as
+    the JAX package's variables flatten (the inverse of ``convert.py``'s
+    leaf rules)."""
+    leaves = {"weight": "kernel", "bias": "bias",
+              "running_mean": "mean", "running_var": "var"}
+    flat = {}
+    for name, t in named.items():
+        *path, leaf = name.split(".")
+        arr = t.detach().float().cpu().numpy()
+        coll = "batch_stats" if leaf.startswith("running_") else "params"
+        leaf = leaves[leaf]
+        if leaf == "kernel" and arr.ndim == 1:
+            leaf = "scale"                       # norm affine
+        elif arr.ndim == 2:
+            arr = arr.T                          # (out, in) -> (in, out)
+        elif arr.ndim == 5:
+            arr = arr.transpose(2, 3, 4, 1, 0)   # OIDHW -> DHWIO
+        flat["/".join([coll] + path + [leaf])] = np.ascontiguousarray(arr)
+    return flat
+
+
+def _export_state(model, moments, directory: str, seed: int) -> dict:
+    """Write ``model``'s weights as a train state of the JAX package at
+    step RESUME_STEP, in the layout ``export_jax_checkpoint.py`` writes
+    (``<step>.npz``, ``best/<step>.npz``, ``best.json``), with seeded
+    non-zero ``moments`` (Adam's ``mu``/``nu`` or SGD's ``trace``); the
+    flat dict."""
+    rng = np.random.default_rng(seed)
+    flat = _flax_flat(model.state_dict())
+    params = _flax_flat(dict(model.named_parameters()))
+    for which in moments:
+        for key, value in params.items():
+            draw = rng.standard_normal(value.shape).astype(np.float32) * 1e-3
+            flat[f"{which}/{key[len('params/'):]}"] = (
+                draw * draw if which == "nu" else draw)
+    flat["count"] = flat["step"] = np.asarray(RESUME_STEP, np.int32)
+    flat["rng"] = np.zeros(2, np.uint32)        # a jax.random key
+    os.makedirs(os.path.join(directory, "best"))
+    for path in (f"{RESUME_STEP}.npz", f"best/{RESUME_STEP}.npz"):
+        np.savez(os.path.join(directory, path), **flat)
+    with open(os.path.join(directory, "best.json"), "w") as f:
+        json.dump({"step": RESUME_STEP, "metric": 0.5}, f)
+    return flat
+
+
+def _bridge_serve(tmp: str, dev) -> dict:
+    """``serve --once`` restoring both nets from exported directories of
+    seeded full-width weights, on cuDNN and on kernel 3: labels bit-equal
+    to the same weights loaded directly, 6 KNN (and 19 conv) launches."""
+    from pointunet_tpu_torch.cli import serve
+    from pointunet_tpu_torch.core.config import (
+        brats_pointseg_config,
+        brats_saliency_config,
+    )
+    from pointunet_tpu_torch.data import nifti
+    from pointunet_tpu_torch.data.loader import (
+        find_brats_cases,
+        load_brats_volume,
+    )
+    from pointunet_tpu_torch.models.randlanet import init_randlanet
+    from pointunet_tpu_torch.models.saliency_unet import init_saliency_unet
+    from pointunet_tpu_torch.pipeline.fused import FusedPointUnet
+
+    gen = torch.Generator().manual_seed(11)
+    scfg = brats_saliency_config(use_bfloat16=True, sa_gate_stride=2)
+    pcfg = brats_pointseg_config(num_points=N_POINTS)
+    saliency = init_saliency_unet(scfg, gen)
+    pointseg = init_randlanet(pcfg, gen)
+    sdir, pdir = os.path.join(tmp, "saliency"), os.path.join(tmp, "pointseg")
+    _export_state(saliency, ("trace",), sdir, seed=12)
+    _export_state(pointseg, ("mu", "nu"), pdir, seed=13)
+    inbox = os.path.join(tmp, "inbox")
+    _write_cases(inbox, n_cases=1)
+    case_dir = find_brats_cases(inbox)[0]
+    mods = load_brats_volume(case_dir)
+    case = os.path.basename(case_dir)
+    direct = FusedPointUnet(
+        saliency, pointseg, scfg, pcfg, threshold=0.9,
+        volume_shape=mods.shape[1:], roi_shape=ROI, device="cuda",
+    )
+    out = {}
+    for route, env in (("serve_restored", "xla"),
+                       ("serve_restored_pallas", "pallas")):
+        outbox = os.path.join(tmp, f"out_{env}")
+        with _env("POINTUNET_FASTCONV", env):
+            reset_launches()
+            server = serve.main([
+                "--inbox", inbox, "--outbox", outbox, "--once",
+                "--roi", *map(str, ROI), "--n_point", str(N_POINTS),
+                "--device", "cuda", "--saliency_checkpoint", sdir,
+                "--pointseg_checkpoint", pdir,
+            ])
+            torch.cuda.synchronize()
+            counts = read_launches()
+            want = direct.segment_volume(mods, brats_labels=True)
+        got = nifti.load(os.path.join(outbox, case + ".nii.gz")).data
+        restored = {**server.pipeline.saliency_model.state_dict(),
+                    **server.pipeline.pointseg_model.state_dict()}
+        weights_equal = all(
+            torch.equal(t.to(dev), restored[n].to(dev)) for n, t in
+            {**saliency.state_dict(), **pointseg.state_dict()}.items())
+        equal = bool(np.array_equal(got, want))
+        convs = CONVS_PER_FORWARD if env == "pallas" else 0
+        log(f"[bridge] {route}: served {server.served} case from the "
+            f"exported directories, weights equal to the seeded ones "
+            f"{weights_equal}, labels bit-equal to the directly loaded "
+            f"weights' {equal} ({int((want > 0).sum())} labelled voxels), "
+            f"kernel launches {counts}")
+        if (server.served != 1 or not weights_equal or not equal
+                or counts["knn_cell_window"] != LAUNCHES_PER_VOLUME
+                or counts["conv3d_3x3"] != convs
+                or counts["scatter_sorted"] or counts["windowed_scatter"]):
+            raise AssertionError(f"{route}: served {server.served}, weights "
+                                 f"{weights_equal}, labels {equal}, {counts}")
+        out[route] = counts
+    del direct, saliency, pointseg
+    return out
+
+
+def _bridge_resume(tmp: str, dev) -> dict:
+    """``run_brats --mode train`` resumed from an exported point-net train
+    state at step RESUME_STEP (non-zero Adam moments): the moments load
+    exactly, RESUME_STEPS steps end at step RESUME_STEP + RESUME_STEPS, 8
+    scatter launches a step."""
+    from pointunet_tpu_torch.cli import run_brats
+    from pointunet_tpu_torch.core.checkpoint import BestMetricCheckpointer
+    from pointunet_tpu_torch.core.config import brats_pointseg_config
+    from pointunet_tpu_torch.models.randlanet import init_randlanet
+    from pointunet_tpu_torch.train.pointseg import PointSegTrainer
+
+    cfg = brats_pointseg_config(num_points=N_POINTS)
+    ckpt = os.path.join(tmp, "resume")
+    flat = _export_state(init_randlanet(cfg, torch.Generator().manual_seed(14)),
+                         ("mu", "nu"), ckpt, seed=15)
+    state = PointSegTrainer(cfg, device="cuda").init_state()
+    BestMetricCheckpointer(ckpt).restore_latest(state)
+    opt = state.optimizer
+    moments = {}
+    for which, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+        got = _flax_flat({n: opt.state[p][key]
+                          for n, p in state.model.named_parameters()})
+        moments[which] = max(
+            float(np.abs(v - flat[f"{which}/{k[len('params/'):]}"]).max())
+            for k, v in got.items())
+    if state.step != RESUME_STEP or any(moments.values()):
+        raise AssertionError(f"restored step {state.step}, moments off by "
+                             f"{moments}")
+    del state, opt
+    root = os.path.join(tmp, "pc")
+    names = _write_clouds(root, dev, n_clouds=RESUME_STEPS + 1)
+    for split, ids in (("train", names[:-1]), ("val", names[-1:])):
+        with open(os.path.join(tmp, f"{split}.txt"), "w") as f:
+            f.write("\n".join(ids) + "\n")
+    reset_launches()
+    t0 = time.perf_counter()
+    state = run_brats.main([
+        "--mode", "train", "--n_epoch", "1", "--data_PC_path", root,
+        "--train_ids", os.path.join(tmp, "train.txt"),
+        "--val_ids", os.path.join(tmp, "val.txt"),
+        "--logdir", os.path.join(tmp, "logs"), "--n_point", str(N_POINTS),
+        "--device", "cuda", "--checkpoint_path", ckpt,
+    ])
+    torch.cuda.synchronize()
+    counts = read_launches()
+    log(f"[bridge] train_resumed: run_brats resumed at step {RESUME_STEP} "
+        f"(Adam moments restored exactly), {RESUME_STEPS} steps + 1 "
+        f"validation cloud in {time.perf_counter() - t0:.1f} s, now at step "
+        f"{state.step}; kernel launches {counts}")
+    if (state.step != RESUME_STEP + RESUME_STEPS
+            or counts["scatter_sorted"] != SCATTERS_PER_STEP * RESUME_STEPS
+            or counts["knn_cell_window"]
+            != LAUNCHES_PER_VOLUME * (RESUME_STEPS + 1)
+            or counts["conv3d_3x3"] or counts["windowed_scatter"]):
+        raise AssertionError(f"resumed run_brats: step {state.step}, "
+                             f"launches {counts}")
+    return {"train_resumed": counts}
+
+
+def _bridge_fixture(dev) -> dict:
+    """The committed checkpoints that JAX wrote (through the exporter) on
+    the card in f32, TF32 off: the point net's logits within 1e-4 x max(1,
+    max |logit|) and the batch-norm UNet3D's within atol 3e-4, rtol 1e-4
+    of the recorded JAX logits (the CPU test's bars,
+    tests/test_torch_checkpoint_bridge.py)."""
+    from pointunet_tpu_torch.core.checkpoint import BestMetricCheckpointer
+    from pointunet_tpu_torch.core.config import (
+        brats_pointseg_config,
+        brats_saliency_config,
+    )
+    from pointunet_tpu_torch.ops.pyramid import take_level0
+    from pointunet_tpu_torch.train.pointseg import PointSegTrainer
+    from pointunet_tpu_torch.train.saliency import SaliencyTrainer
+
+    with open(os.path.join(FIXTURE, "meta.json")) as f:
+        meta = json.load(f)
+
+    def cfg(fn, overrides):
+        return fn(**{k: tuple(v) if isinstance(v, list) else v
+                     for k, v in overrides.items()})
+
+    pcfg = cfg(brats_pointseg_config, meta["pointseg"])
+    scfg = cfg(brats_saliency_config, meta["saliency"])
+    with np.load(os.path.join(FIXTURE, "inputs.npz")) as z:
+        inputs = {k: z[k] for k in z.files}
+    trainer = PointSegTrainer(pcfg, device="cuda")
+    state = trainer.init_state()
+    BestMetricCheckpointer(os.path.join(FIXTURE, "pointseg")).restore_latest(
+        state)
+    feats = torch.from_numpy(inputs["point_feats"]).to(dev)
+    with torch.no_grad():
+        pyr = trainer.pyramid_fn(feats[..., :3].contiguous())
+        logits = state.model.eval()(take_level0(pyr, feats), pyr)
+    inv = torch.argsort(pyr.order.long(), dim=-1)
+    got = logits.gather(1, inv[..., None].expand_as(logits)).cpu().numpy()
+    want = inputs["point_logits"]
+    point_err = float(np.abs(got - want).max())
+    point_bar = 1e-4 * max(1.0, float(np.abs(want).max()))
+    sal = SaliencyTrainer(scfg, device="cuda",
+                          attention=meta["saliency_net"] == "attention")
+    sstate = sal.init_state()
+    BestMetricCheckpointer(os.path.join(FIXTURE, "saliency")).restore_best(
+        sstate)
+    x = torch.from_numpy(inputs["saliency_x"]).to(dev).permute(0, 4, 1, 2, 3)
+    with torch.no_grad():
+        sgot = sstate.model.eval()(x.contiguous()).permute(0, 2, 3, 4, 1)
+    swant = inputs["saliency_logits"]
+    sgot = sgot.cpu().numpy()
+    sal_excess = float((np.abs(sgot - swant)
+                        - (3e-4 + 1e-4 * np.abs(swant))).max())
+    log(f"[bridge] JAX-written fixture on the card (f32, TF32 off): point "
+        f"net {pcfg.d_out} at {want.shape[1]} points, step {state.step}, "
+        f"max |logit diff| {point_err:.3e} (bar {point_bar:.3e}); "
+        f"{meta['saliency_net']} (batch norm), step {sstate.step}, max "
+        f"|logit diff| {float(np.abs(sgot - swant).max()):.3e} (bar atol "
+        f"3e-4 + rtol 1e-4, excess {sal_excess:.3e})")
+    if (not point_err <= point_bar or not sal_excess <= 0
+            or state.step != meta["steps"] or sstate.step != meta["steps"]):
+        raise AssertionError("the JAX fixture's logits are off the bar")
+    return {"point_max_abs_err": point_err, "point_bar": point_bar,
+            "saliency_max_abs_err": float(np.abs(sgot - swant).max())}
+
+
+def _bridge_native(dev) -> dict:
+    """The native host library built from this checkout: grid
+    subsampling of a 180,000-point voxel cloud against the numpy path
+    (the same cells and labels, points bit-equal: voxel sums are exact
+    in f32; features within 1e-4 relative) and knn_batch against brute
+    force on the card (tie-aware recall 1.0); host times."""
+    from pointunet_tpu_torch import native
+    from pointunet_tpu_torch.ops import cuda_build
+    from pointunet_tpu_torch.ops.subsample import grid_subsample
+
+    t0 = time.perf_counter()
+    so = cuda_build.build_host(native.SOURCE)
+    build_s = time.perf_counter() - t0
+    if not native.available():
+        raise AssertionError("the native library is not available")
+    rng = np.random.default_rng(21)
+    shape = np.asarray((256, 256, 160))
+    flat = rng.choice(int(shape.prod()), NATIVE_POINTS, replace=False)
+    vox = np.stack(np.unravel_index(flat, tuple(shape)), -1).astype(np.float32)
+    feats = rng.standard_normal((NATIVE_POINTS, 1)).astype(np.float32)
+    labels = rng.integers(0, 2, NATIVE_POINTS).astype(np.int32)
+
+    def host_ms(fn, repeats=3):
+        fn()
+        t = time.perf_counter()
+        for _ in range(repeats):
+            out = fn()
+        return (time.perf_counter() - t) * 1e3 / repeats, out
+
+    nat_ms, got = host_ms(lambda: native.grid_subsample(vox, feats, labels, 4.0))
+    np_ms, want = host_ms(lambda: grid_subsample(vox, feats, labels, 4.0))
+    go, wo = np.lexsort(got[0].T), np.lexsort(want[0].T)
+    same = (got[0].shape == want[0].shape
+            and np.array_equal(got[0][go], want[0][wo])
+            and np.array_equal(got[2][go], want[2][wo])
+            and np.allclose(got[1][go], want[1][wo], rtol=1e-4, atol=1e-5))
+    xyz = vox / shape.astype(np.float32)
+    q = xyz[:NATIVE_QUERIES]
+    knn_ms, idx = host_ms(lambda: native.knn_batch(xyz[None], xyz[None], 16))
+    recall = float(_tie_aware_recall(
+        torch.from_numpy(xyz).to(dev), torch.from_numpy(q).to(dev),
+        torch.from_numpy(idx[0, :NATIVE_QUERIES]).to(dev), 16).min())
+    log(f"[bridge] native: {so.name} built in {build_s:.2f} s "
+        f"({cuda_build.cxx()}, {native.num_threads()} OpenMP threads, "
+        f"{os.cpu_count()} CPUs); grid_subsample of {NATIVE_POINTS} voxels "
+        f"(grid 4) -> {got[0].shape[0]} cells, equal to numpy's {same}, "
+        f"{nat_ms:.1f} ms native vs {np_ms:.1f} ms numpy (host, mean of "
+        f"3); knn_batch k=16 of {NATIVE_POINTS} x {NATIVE_POINTS} "
+        f"{knn_ms:.1f} ms, tie-aware recall of {NATIVE_QUERIES} queries "
+        f"{recall:.6f}")
+    if not same or recall < 1.0:
+        raise AssertionError(f"native: equal {same}, recall {recall}")
+    return {"build_s": build_s, "threads": native.num_threads(),
+            "grid_subsample_ms": nat_ms,
+            "numpy_ms": np_ms, "knn_batch_ms": knn_ms, "recall": recall}
+
+
+def phase_bridge(dev) -> dict:
+    """Checkpoints of the JAX package on the card: serve restoring
+    exported full-width weights (cuDNN and kernel 3), run_brats resumed
+    from an exported train state, the committed JAX-written fixture held
+    to its recorded logits, and the native host library."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = _bridge_serve(tmp, dev)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out.update(_bridge_resume(tmp, dev))
+    torch.cuda.empty_cache()
+    out["fixture"] = _bridge_fixture(dev)
+    out["native"] = _bridge_native(dev)
+    return out
+
+
 def _conv_summary(conv, launches, by_path) -> dict:
     """Kernel 3's entry of the ``kernels`` line: the sums over the 19
     convs of one bf16 ROI forward (the serve path's), the f32 window's
@@ -2004,6 +2344,8 @@ def main() -> int:
     train = phase_train(dev)
     saliency = phase_saliency(dev)
     pancreas = phase_pancreas(dev)
+    torch.cuda.empty_cache()
+    bridge = phase_bridge(dev)
 
     # each path's launches, counted from 0 over its run; "launches" is
     # the count on the path that carries the kernel in this run: the
@@ -2024,6 +2366,9 @@ def main() -> int:
         "serve_pancreas": pancreas.pop("serve_launches"),
         "serve_pancreas_pallas_request": pancreas.pop("pallas_launches"),
         "train_pancreas": pancreas.pop("train_launches"),
+        "serve_restored": bridge.pop("serve_restored"),
+        "serve_restored_pallas": bridge.pop("serve_restored_pallas"),
+        "train_resumed": bridge.pop("train_resumed"),
     }
 
     def by_path(name):
@@ -2044,6 +2389,7 @@ def main() -> int:
     conv_entry["pancreas"] = pancreas.pop("conv")
     scatter["pancreas"] = pancreas.pop("step_cases")
     kernel["pancreas"] = pancreas
+    kernel["bridge"] = bridge
     window["launches_by_path"] = by_path("windowed_scatter")
     entries = [kernel, scatter, conv_entry, window]
     for entry in entries:                  # nvcc seconds of its source

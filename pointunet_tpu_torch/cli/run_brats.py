@@ -10,7 +10,10 @@ the newest checkpoint under ``--checkpoint_path`` (default
 ``<logdir>/snapshots``) and runs ``fit``, keeping the best-mIoU
 checkpoint. Test mode restores the best checkpoint and writes, per
 validation cloud, a (Z, Y, X, num_classes) probability volume
-``<results_path>/<ID>.npy`` ((155, 240, 240, 4) for BraTS).
+``<results_path>/<ID>.npy`` ((155, 240, 240, 4) for BraTS). The
+checkpoint directory may be one that ``export_jax_checkpoint.py`` wrote
+from the JAX package's: training then resumes from its latest step, Adam
+moments and step carried over (``core/checkpoint.py``).
 """
 from __future__ import annotations
 

@@ -14,7 +14,9 @@ validate. Checkpoints live in ``--checkpoint_path`` (default
 one and writes, per validation loop, the probabilities scattered into the
 CT's grid: a (Z, Y, X, 2) volume ``<results_path>/<ID>_loop_<k>.npy``,
 the shape read from ``<data_3D_path>/PANCREAS_<ID>.nii.gz``'s header;
-it logs each loop's binary point Dice.
+it logs each loop's binary point Dice. The checkpoint directory may be
+one that ``export_jax_checkpoint.py`` wrote from the JAX package's
+(``core/checkpoint.py``).
 """
 from __future__ import annotations
 

@@ -20,9 +20,10 @@ Weights: random from seed 0, as the reference's when it is given no
 checkpoint; ``--saliency_checkpoint`` and ``--pointseg_checkpoint``
 restore the best checkpoint the port's saliency trainer
 (``cli/train_attention.py``) or point trainer (``cli/run_brats.py``)
-wrote. A directory with no such checkpoint ends the run with a message:
-the JAX package's orbax checkpoints are not read (ROADMAP queue 1, item
-2).
+wrote, or one of the JAX package's trainers once
+``export_jax_checkpoint.py`` has exported it (``core/checkpoint.py``). A
+directory with no checkpoint ends the run with a message; one with the
+JAX package's orbax checkpoints, with a message naming the exporter.
 """
 from __future__ import annotations
 
@@ -97,15 +98,12 @@ def build_pipeline(args) -> Pipeline:
 
 
 def _restore(directory: str, trainer):
-    """The model of the best checkpoint under ``directory``, restored into
-    a CPU state of ``trainer``, in eval mode; exits when there is none."""
+    """The model of the best checkpoint under ``directory`` (the port's,
+    or an exported one of the JAX package), restored into a CPU state of
+    ``trainer``, in eval mode; exits when there is none."""
     state = trainer.init_state()
     if BestMetricCheckpointer(directory).restore_best(state) is None:
-        raise SystemExit(
-            f"no checkpoint found under {directory} (the port reads its "
-            "own trainers' checkpoints; reading the JAX package's is "
-            "ROADMAP queue 1, item 2)"
-        )
+        raise SystemExit(f"no checkpoint found under {directory}")
     return state.model.eval()
 
 

@@ -25,7 +25,8 @@ polls every ``--poll_s`` seconds. The models come from
 ``cli/segment.py:build_pipeline`` on its ``--fast`` path (the dataset's
 configs): random weights from seed 0; ``--saliency_checkpoint`` and
 ``--pointseg_checkpoint`` restore the best checkpoint the port's saliency
-or point trainer wrote, as ``segment`` does.
+or point trainer wrote, or an exported one of the JAX package's
+(``export_jax_checkpoint.py``), as ``segment`` does.
 """
 from __future__ import annotations
 

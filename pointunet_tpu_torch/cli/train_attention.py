@@ -18,9 +18,10 @@ training view. ``--predict`` writes one ``<case_id>.npy`` per case into
 ``--outPros_path``: (X, Y, Z, 2) f32 probabilities, axial-aligned
 whatever the view, and for a cropped BraTS case placed back at its
 bounding box in the original shape (zeros outside), ready for
-``gen_binary_map``. Checkpoints are the port's torch format
-(``core/checkpoint.py``); the JAX package's orbax checkpoints are not
-read.
+``gen_binary_map``. Checkpoints are the port's torch format, or a
+directory that ``export_jax_checkpoint.py`` wrote from the JAX package's
+orbax checkpoints (``core/checkpoint.py``): evaluated, predicted from or
+resumed (momentum and step carried over) alike.
 """
 from __future__ import annotations
 

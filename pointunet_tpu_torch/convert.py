@@ -24,7 +24,10 @@ transposes) into ``torch.optim.Adam``'s ``exp_avg``/``exp_avg_sq``, its
 ``SaliencyTrainState``: optax's momentum ``trace/<path>`` into
 ``torch.optim.SGD``'s ``momentum_buffer`` (the two parameter groups of
 ``train/saliency.py:make_optimizer``), and the schedule's ``count``, which
-the port's schedule reads as the trainer's ``step``.
+the port's schedule reads as the trainer's ``step``. Both drop the
+state's ``rng`` (a ``jax.random`` key). ``export_jax_checkpoint.py`` (repo
+root) writes such flat states from the reference's orbax checkpoints;
+the states' ``load_reference`` takes them.
 """
 from __future__ import annotations
 
@@ -109,7 +112,9 @@ def convert_saliency(
 
 def _split_state(flat: Dict[str, np.ndarray], moments) -> tuple:
     """A flat reference train state -> (variables, {moment: {params/...:
-    value}}, {"count", "step"}); raises on any other entry."""
+    value}}, {"count", "step"}); drops ``rng`` (the reference's
+    ``jax.random`` key, which torch cannot continue) and raises on any
+    other entry."""
     variables: Dict[str, np.ndarray] = {}
     groups: Dict[str, Dict[str, np.ndarray]] = {m: {} for m in moments}
     scalars = {}
@@ -121,7 +126,7 @@ def _split_state(flat: Dict[str, np.ndarray], moments) -> tuple:
             groups[head]["params/" + rest] = value
         elif key in ("count", "step"):
             scalars[key] = int(np.asarray(value))
-        else:
+        elif key != "rng":
             raise KeyError(f"unconvertible train-state entry {key!r}")
     if set(scalars) != {"count", "step"}:
         raise KeyError(f"train state lacks {sorted({'count', 'step'} - set(scalars))}")

@@ -1,13 +1,17 @@
 """Normalisation layers (``pointunet_tpu/models/norms.py``), plus the
-last-axis inference ``BatchNorm`` of the point net.
+``BatchNorm`` of the point net.
 
 Volumes are channels-first (B, C, D, H, W). Instance norm is GroupNorm
 with one channel per group, eps 1e-5; on bf16 inputs PyTorch reduces the
 statistics in f32. The reference computes the variance as E[x^2] - E[x]^2
 and PyTorch in two passes: in f32 the two differ by rounding only
-(tests/test_torch_saliency.py states the tolerance).
+(tests/test_torch_saliency.py states the tolerance). The batch-norm
+flavour is ``BatchNorm`` on the channel axis 1.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -16,48 +20,84 @@ from torch import nn
 from .naming import FlaxNamed
 
 
+class _Frozen(threading.local):
+    on = False
+
+
+_frozen = _Frozen()
+
+
+@contextlib.contextmanager
+def running_stats_frozen():
+    """Within (on this thread), train-mode ``BatchNorm``s normalise by the
+    batch's statistics and leave their running ones as they are: a
+    checkpointed block's recomputation in the backward must not update
+    them a second time (flax's remat recomputes a pure function)."""
+    prev, _frozen.on = _frozen.on, True
+    try:
+        yield
+    finally:
+        _frozen.on = prev
+
+
 class BatchNorm(nn.Module):
-    """Batch norm over the LAST axis in flax's arithmetic
+    """Batch norm over the feature axis ``axis``, -1 (the last, as in the
+    point net) or 1 (channels-first volumes), in flax's arithmetic
     (``flax.linen.BatchNorm``): (x - mean) * (rsqrt(var + eps) * scale) +
     bias. State names follow torch (weight, bias, running_mean,
     running_var).
 
     Eval mode normalises with the running statistics. Train mode takes
     the batch's: mean and ``var = max(0, E[x^2] - E[x]^2)`` (biased) over
-    every axis but the last, in f32, normalises in f32 and returns the
-    input's dtype; then ``running = m * running + (1 - m) * batch`` with
-    ``m = momentum`` (flax's convention: 0.99 keeps 99 % of the old
-    value, the opposite of ``nn.BatchNorm1d``'s)."""
+    every other axis, in f32, normalises in f32 and returns the input's
+    dtype; then ``running = m * running + (1 - m) * batch`` with ``m =
+    momentum`` (flax's convention: 0.99 keeps 99 % of the old value, the
+    opposite of ``nn.BatchNorm3d``'s, whose running variance is also the
+    unbiased one)."""
 
-    def __init__(self, features: int, eps: float, momentum: float):
+    def __init__(self, features: int, eps: float, momentum: float,
+                 axis: int = -1):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.axis = axis
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
+    def _bcast(self, v: torch.Tensor, ndim: int) -> torch.Tensor:
+        """A per-feature vector shaped to broadcast against an input of
+        ``ndim`` axes (as it is for the last axis)."""
+        if self.axis == -1:
+            return v
+        return v.view((-1,) + (1,) * (ndim - 2))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             return self._train_forward(x)
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        dt = x.dtype
-        return (x - self.running_mean.to(dt)) * mul.to(dt) + self.bias.to(dt)
+        dt, n = x.dtype, x.ndim
+        return ((x - self._bcast(self.running_mean, n).to(dt))
+                * self._bcast(mul, n).to(dt)
+                + self._bcast(self.bias, n).to(dt))
 
     def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
         x32 = x.float()
-        dims = tuple(range(x.ndim - 1))
+        n = x.ndim
+        dims = tuple(d for d in range(n) if d != self.axis % n)
         mean = x32.mean(dims)
         var = torch.clamp(
             (x32 * x32).mean(dims) - mean * mean, min=0.0
         )
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.mul_(m).add_((1 - m) * mean)
-            self.running_var.mul_(m).add_((1 - m) * var)
-        y = (x32 - mean) * (torch.rsqrt(var + self.eps) * self.weight)
-        return (y + self.bias).to(x.dtype)
+        if not _frozen.on:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_((1 - m) * mean)
+                self.running_var.mul_(m).add_((1 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x32 - self._bcast(mean, n)) * self._bcast(mul, n)
+        return (y + self._bcast(self.bias, n)).to(x.dtype)
 
 
 class GroupNorm(nn.GroupNorm):
@@ -74,15 +114,21 @@ class GroupNorm(nn.GroupNorm):
 
 
 class NormRelu(FlaxNamed):
-    """Instance norm (GroupNorm, group size 1) + relu. The reference's
-    batch-norm flavour (``instance_norm=False``) is not ported: no config
-    selects it."""
+    """Norm + relu: instance norm (GroupNorm, group size 1) or, with
+    ``instance_norm=False``, flax's ``BatchNorm`` over the channels
+    (momentum 0.9, eps 1e-5; batch statistics in train mode, the running
+    ones in eval mode). The reference's ``axis_name``, which syncs the
+    batch statistics across a device mesh, belongs to the multi-device
+    work (ROADMAP queue 1, item 6): the port runs on one card."""
 
     def __init__(self, channels: int, instance_norm: bool = True):
         super().__init__()
-        if not instance_norm:
-            raise NotImplementedError("the batch-norm NormRelu is not ported")
-        self.child("GroupNorm", GroupNorm(channels, channels, eps=1e-5), "norm")
+        if instance_norm:
+            self.child("GroupNorm", GroupNorm(channels, channels, eps=1e-5),
+                       "norm")
+        else:
+            self.child("BatchNorm", BatchNorm(channels, 1e-5, 0.9, axis=1),
+                       "norm")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.relu(self.norm(x))

@@ -11,11 +11,13 @@ H, W) in f32. With ``config.remat`` and the model in train mode, the
 blocks the reference wraps in ``nn.remat`` (every ConvNormRelu,
 UNetBlock, CFE3D, UpsampleConv and SpatialAttention3D call) run under
 ``torch.utils.checkpoint`` when autograd records: their activations are
-recomputed in the backward instead of kept. The wrapping happens in
+recomputed in the backward instead of kept (a batch norm's running
+statistics are updated by the forward only). The wrapping happens in
 ``forward``, so parameter names are the same either way.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -28,7 +30,7 @@ from ..core.config import SaliencyConfig
 from .attention3d import ChannelWiseAttention3D, SpatialAttention3D
 from .fastconv import Conv, _nearest_upsample
 from .naming import FlaxNamed
-from .norms import NormRelu
+from .norms import NormRelu, running_stats_frozen
 
 
 def _avg_pool(x: torch.Tensor, s: int) -> torch.Tensor:
@@ -44,8 +46,15 @@ def _remat(enable: bool, module: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """``module(x)``; with ``enable`` and autograd recording, its
     activations are recomputed in the backward (``checkpoint``)."""
     if enable and torch.is_grad_enabled():
-        return checkpoint(module, x, use_reentrant=False)
+        return checkpoint(module, x, use_reentrant=False,
+                          context_fn=_recompute_context)
     return module(x)
+
+
+def _recompute_context():
+    """``checkpoint``'s contexts: none for the forward, frozen batch-norm
+    running statistics for the recomputation."""
+    return contextlib.nullcontext(), running_stats_frozen()
 
 
 class ConvNormRelu(FlaxNamed):

@@ -1,4 +1,5 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels, and its host C++
+library.
 
 Each kernel source in ``pointunet_tpu_torch/csrc/`` exports a plain C
 launch function. ``build_all(sources)`` compiles sources in parallel (one
@@ -10,7 +11,9 @@ compiler's ``-Xptxas -v`` report (registers, spills) beside the library as
 Each source is one translation unit with no headers of its own, so the
 hash of the source covers everything a build reads from the repo.
 Nothing is built when a module is imported: the CPU tests import every
-module and have no ``nvcc``.
+module and have no ``nvcc``. ``build_host(source)`` compiles a host C++
+source (``csrc/pointops.cpp``, for ``native.py``) the same way, with
+``$CXX`` or ``g++`` and the flags of the reference's ``csrc/Makefile``.
 """
 from __future__ import annotations
 
@@ -104,3 +107,62 @@ def load(source: Path, symbol: str, argtypes: Sequence) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         _loaded[source] = lib
     return lib
+
+
+def cxx() -> Optional[str]:
+    """The host C++ compiler, ``$CXX`` or ``g++`` on PATH; None if absent."""
+    return shutil.which(os.environ.get("CXX") or "g++")
+
+
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-shared")
+
+
+def host_library_path(source: Path, compiler: str,
+                      flags: Sequence[str]) -> Path:
+    """Where ``build_host`` puts ``source`` built by ``compiler`` with
+    ``flags``."""
+    key = hashlib.sha256(
+        source.read_bytes() + "\0".join((compiler, *flags)).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"{source.stem}_{key}.so"
+
+
+def build_host(source: Path) -> Path:
+    """Compile the host C++ ``source`` into a shared library with the
+    flags of the reference's ``csrc/Makefile`` (``-O3 -std=c++17 -fPIC
+    -fopenmp``), or without ``-fopenmp`` where that build fails or does
+    not load (a compiler or host with no OpenMP runtime; the source
+    guards its pragmas with ``_OPENMP`` and runs on one thread). The
+    library's name is keyed on the source, the compiler's path and the
+    flags, and a library already there is used only if it loads. Its
+    path; raises when there is no compiler or no build loads."""
+    compiler = cxx()
+    if compiler is None:
+        raise RuntimeError(
+            "no C++ compiler ($CXX or g++ on PATH) to build "
+            f"{source.name}"
+        )
+    errors = []
+    for openmp in (("-fopenmp",), ()):
+        flags = HOST_FLAGS + openmp
+        so = host_library_path(source, compiler, flags)
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+            proc = subprocess.run(
+                [compiler, *flags, "-o", str(tmp), str(source)],
+                capture_output=True, text=True,
+            )
+            if proc.returncode != 0:
+                errors.append(f"{compiler} {' '.join(flags)} failed on "
+                              f"{source.name} ({proc.returncode}):\n"
+                              f"{proc.stdout}{proc.stderr}")
+                continue
+            os.replace(tmp, so)
+        try:
+            ctypes.CDLL(str(so))
+        except OSError as e:
+            errors.append(f"{so.name} does not load: {e}")
+            continue
+        return so
+    raise RuntimeError("\n".join(errors))

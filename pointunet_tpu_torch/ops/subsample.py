@@ -7,7 +7,8 @@ label (the lowest class on a tie).
 
 * ``grid_subsample``: host numpy with a dynamic output size, for the
   offline prep tools. The reference takes a native C++ path when one is
-  built and holds it equal to this numpy one; the port has only this.
+  built; the port keeps this one, bit-equal to the reference's numpy
+  path (``native.grid_subsample`` is ported beside it, not taken here).
 * ``grid_subsample_fixed``: device torch with a static output budget
   (sorted-segment reductions by ``torch.unique``, ``index_add_`` and
   ``scatter_reduce``), for on-device pipelines.

@@ -54,6 +54,17 @@ class TrainState:
         if "generator" in d:
             self.generator.set_state(d["generator"])
 
+    def load_reference(self, flat: dict) -> None:
+        """Load a flat reference ``TrainState`` (``params/``,
+        ``batch_stats/``, ``mu/``, ``nu/``, ``count``, ``step``, ``rng``:
+        what ``export_jax_checkpoint.py`` writes) through
+        ``convert_train_state``. The reference's ``rng`` is a
+        ``jax.random`` key that torch cannot continue: it is skipped and
+        the dropout generator keeps its state."""
+        from ..convert import convert_train_state
+
+        self.load_state_dict(convert_train_state(flat, self.model))
+
 
 class PointSegTrainer:
     """Owns the config, the step functions and the epoch loop; the model

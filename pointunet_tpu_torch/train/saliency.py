@@ -4,7 +4,7 @@
 * Momentum SGD (0.9, no dampening, not Nesterov) with weight decay
   ``cfg.weight_decay`` added to the gradients of the conv and dense
   kernels only (the reference's ``_kernel_mask``: every ``Conv.weight``
-  and ``nn.Linear.weight``; biases and GroupNorm affines take none).
+  and ``nn.Linear.weight``; biases and norm affines take none).
   optax adds the decay to the gradient before the momentum trace, and so
   does ``torch.optim.SGD``.
 * The reference's stepped learning rate: ``base_lr``, then each
@@ -94,6 +94,16 @@ class SaliencyTrainState:
         self.model.load_state_dict(d["model"])
         self.optimizer.load_state_dict(d["optimizer"])
         self.step = int(d["step"])
+
+    def load_reference(self, flat: dict) -> None:
+        """Load a flat reference ``SaliencyTrainState`` (``params/``,
+        ``batch_stats/`` for the batch-norm flavour, ``trace/``,
+        ``count``, ``step``, ``rng``: what ``export_jax_checkpoint.py``
+        writes) through ``convert_saliency_train_state``; the
+        ``jax.random`` key ``rng`` is skipped."""
+        from ..convert import convert_saliency_train_state
+
+        self.load_state_dict(convert_saliency_train_state(flat, self.model))
 
 
 class SaliencyTrainer:

@@ -578,10 +578,11 @@ def test_checkpoint_resume_is_bit_equal(tmp_path):
 
 
 def test_restore_best_without_snapshots_returns_none(tmp_path):
-    """A directory whose ``best.json`` names a step with no ``.pt`` (as an
-    orbax directory of the JAX package does) restores nothing."""
+    """A directory whose ``best.json`` names a step with no snapshot
+    restores nothing (an orbax one of the JAX package, which also has
+    step folders, exits naming the exporter:
+    tests/test_torch_checkpoint_bridge.py)."""
     (tmp_path / "best.json").write_text('{"step": 7, "metric": 0.5}')
-    (tmp_path / "7").mkdir()
     state = SaliencyTrainer(brats_saliency_config(**TINY),
                             device="cpu").init_state()
     assert BestMetricCheckpointer(str(tmp_path)).restore_best(state) is None

@@ -71,14 +71,13 @@ def test_serve_restores_a_pointseg_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--saliency_checkpoint", "{tmp}/orbax"], "ROADMAP queue 1, item 2"),
+    (["--saliency_checkpoint", "{tmp}/orbax"], "export_jax_checkpoint.py"),
 ])
 def test_serve_refuses_with_the_roadmap_item(tmp_path, flags, item):
     """The reference's flags parse (no argparse exit 2) and end in a
-    ``SystemExit`` that names the ROADMAP item that will bring them: a
-    saliency checkpoint directory with no checkpoint of the port's (an
-    orbax directory of the JAX package has a ``best.json`` and no
-    ``.pt``)."""
+    ``SystemExit`` that names what the user must run: a saliency
+    checkpoint directory of the JAX package (orbax step folders and a
+    ``best.json``, no snapshot the port reads) names the exporter."""
     from pointunet_tpu_torch.cli import serve
 
     (tmp_path / "orbax" / "7").mkdir(parents=True)
@@ -152,9 +151,11 @@ def test_serve_without_device_needs_the_card(tmp_path, monkeypatch):
 
 def test_port_imports_no_jax():
     """Neither the port (its serving, segmenting and training entry
-    points, both trainers, its kernels' wrappers, the Pancreas path and
-    the offline prep and scoring tools) nor chip_smoke.py loads JAX or
-    any module of the JAX package (``pointunet_tpu``)."""
+    points, both trainers, its kernels' wrappers, the Pancreas path, the
+    offline prep and scoring tools, the host CLIs, the native ops and the
+    checkpoint reader) nor chip_smoke.py loads JAX, any module of the JAX
+    package (``pointunet_tpu``) or the exporter, which is the one file
+    that imports both."""
     code = (
         "import sys\n"
         "import pointunet_tpu_torch.cli.serve, pointunet_tpu_torch.convert\n"
@@ -190,10 +191,16 @@ def test_port_imports_no_jax():
         "import pointunet_tpu_torch.cli.generate_kfold\n"
         "import pointunet_tpu_torch.ops.subsample\n"
         "import pointunet_tpu_torch.train.metrics\n"
+        "import pointunet_tpu_torch.native\n"
+        "import pointunet_tpu_torch.cli.n4_correction\n"
+        "import pointunet_tpu_torch.cli.oversampling_analysis\n"
+        "import pointunet_tpu_torch.cli.visualize\n"
+        "import pointunet_tpu_torch.cli.data_prepare_blocks\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in\n"
-        "             ('jax', 'flax', 'orbax', 'optax', 'pointunet_tpu'))\n"
+        "             ('jax', 'flax', 'orbax', 'optax', 'pointunet_tpu',\n"
+        "              'export_jax_checkpoint'))\n"
         "print(bad)\n"
     )
     out = subprocess.run(
@@ -201,6 +208,20 @@ def test_port_imports_no_jax():
         text=True, timeout=120, check=True,
     ).stdout
     assert out.strip() == "[]", out
+
+
+def test_no_port_module_imports_the_exporter():
+    """``export_jax_checkpoint.py`` imports JAX and the JAX package; no
+    source of the port, nor chip_smoke.py, names it in an import."""
+    import re
+    from pathlib import Path
+
+    pattern = re.compile(r"^\s*(import|from)\s+export_jax_checkpoint\b", re.M)
+    sources = list(Path(REPO, "pointunet_tpu_torch").rglob("*.py"))
+    sources.append(Path(REPO, "chip_smoke.py"))
+    assert len(sources) > 50
+    offenders = [str(p) for p in sources if pattern.search(p.read_text())]
+    assert offenders == []
 
 
 # fields the port leaves out on purpose: TrainConfig's device mesh (the
