@@ -4,9 +4,9 @@
 
 Drives the port's paths (``pointunet_tpu_torch``): serving, the
 ``segment`` CLI (reference-exact sliding-window path and ``--fast``),
-point-net training and saliency-net training (``train_attention``), at
-the full BraTS width, and fails (non-zero exit, no result
-line) on any fault. Phases:
+point-net training and saliency-net training (``train_attention``), and
+training and serving on a mesh of ranks, at the full BraTS width, and
+fails (non-zero exit, no result line) on any fault. Phases:
 
 1. build: compile the four CUDA kernels from the sources in this checkout
    (one ``nvcc`` each, in parallel), print each one's build seconds and
@@ -125,7 +125,27 @@ line) on any fault. Phases:
    |logit|), batch-norm UNet3D within atol 3e-4 + rtol 1e-4); the native
    host library (``native.py``) is built, its grid subsampling of a
    180,000-voxel cloud held equal to the numpy path, its ``knn_batch``
-   to brute force (tie-aware recall 1.0), both timed on the host.
+   to brute force (tie-aware recall 1.0), both timed on the host;
+12. mesh: the multi-device layer (``pointunet_tpu_torch/parallel``) with
+   several ranks sharing this one card over gloo (NCCL takes one rank a
+   card; the backend is printed; ranks sharing a card measure no
+   scaling). (a) 4 ranks, ``MeshConfig(data=2, point=2)``: the Train
+   config on a batch of 2 synthetic clouds, 3 steps; each rank's first
+   pyramid (``build_pyramid_sharded``: kernel 1 on query slabs of levels
+   0 and 1, level 2 whole) bit-equal to the one-card ``build_pyramid`` of
+   its cloud, exactly 6 KNN and 8 scatter launches a step on every
+   rank, the first loss within 5e-3 relative of the one-card step of the
+   same batch (bf16), the parameters bit-equal across ranks after every
+   step; rank 0 holds the slab searches and the step's scatters to the
+   kernels' plain versions (phases 2 and 3's bars). (b) 2 ranks,
+   ``MeshConfig(data=2)``: ``segment_batch_device`` of 2 seeded volumes
+   at the Serve config, on cuDNN and with ``POINTUNET_FASTCONV=pallas``:
+   labels on every rank bit-equal to the one-card loop, 6 KNN (and 19
+   conv) launches a rank. (c) the same 4 ranks, ``MeshConfig(point=4)``:
+   ``knn_point_sharded`` of phase 2's cloud in 4 x-slabs (one KNN launch
+   a rank, equal to the plain version): tie-aware recall >= 0.99 against
+   exact search, some neighbours in another slab. A failing rank fails
+   the phase.
 
 Every path is driven with the kernels' launch counts set to 0 just before
 it and read just after. Before the last line it prints the card
@@ -139,6 +159,7 @@ import argparse
 import contextlib
 import ctypes
 import gzip
+import hashlib
 import json
 import os
 import re
@@ -184,6 +205,10 @@ RESUME_STEP = 7
 RESUME_STEPS = 2
 NATIVE_POINTS = PANCREAS_POINTS
 NATIVE_QUERIES = 4096          # knn_batch queries held to brute force
+MESH_STEPS = 3                 # phase 12: train steps on the dp2 x sp2 mesh
+MESH_SEEDS = (5, 6)            # its batch: 2 synthetic clouds
+MESH_LOSS_BAR = 5e-3           # its first loss against the one-card step's
+MESH_RANK_TIMEOUT_S = 300      # a phase-12 launch whose ranks take longer fails
 # the card's peaks (NVIDIA H100 SXM data sheet): device memory bytes/s,
 # f32 operations/s outside the tensor cores, bf16 on the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -193,6 +218,14 @@ TF32_OPS_S = 495e12
 # f32-accurate products on the tensor cores take three TF32 products
 # (3xTF32): the least time for f32 conv work is 3 x ops / 495 TFLOP/s
 F32_TC_OPS_S = TF32_OPS_S / 3
+
+
+def _full_f32() -> None:
+    """f32 comparisons hold full f32: cuDNN would run f32 convs in TF32
+    (F.conv3d is the f32 bar of phase 6) and matmuls could. Phase 12's
+    ranks, fresh processes, set it again."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def log(msg: str) -> None:
@@ -2292,6 +2325,378 @@ def phase_bridge(dev) -> dict:
     return out
 
 
+def _digest(model) -> str:
+    """sha256 of every parameter's bytes, in order."""
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _pyramid_equal(a, b) -> bool:
+    """Every field of two pyramids equal, bit for bit."""
+    return all(
+        all(torch.equal(x, y) for x, y in zip(f, g))
+        if isinstance(f, tuple) else torch.equal(f, g)
+        for f, g in zip(a, b)
+    )
+
+
+def _to_cpu(pyr):
+    return type(pyr)(*(
+        tuple(t.cpu() for t in f) if isinstance(f, tuple) else f.cpu()
+        for f in pyr
+    ))
+
+
+def _slab_cases(calls, tag: str) -> list:
+    """Each recorded cell-window search (``_search_sorted``'s arguments)
+    through the KNN kernel and its plain version: rows must be equal."""
+    from pointunet_tpu_torch.ops import knn_cuda
+
+    shapes = []
+    for sp, s_ids, qp, qc3, k, r in calls:
+        cs = knn_cuda.cell_prefix_sums(s_ids, r)
+        qc = qc3.to(torch.int32).contiguous()
+        sp, qp = sp.contiguous(), qp.contiguous()
+        got = knn_cuda.knn_cell_window(sp, cs, qp, qc, k, r)
+        want = knn_cuda.knn_cell_window_plain(sp, cs, qp, qc, k, r)
+        torch.cuda.synchronize()
+        bad = int((got != want).any(1).sum())
+        ms = cuda_ms(lambda: knn_cuda.knn_cell_window(sp, cs, qp, qc, k, r), 20)
+        shapes.append({"search": f"k={k} Ns={sp.shape[0]} Nq={qp.shape[0]}",
+                       "rows_differing": bad, "ms": ms})
+        if bad:
+            raise AssertionError(
+                f"{tag}: kernel disagrees with its plain version on {bad} "
+                f"rows (k={k}, Ns={sp.shape[0]}, Nq={qp.shape[0]})")
+    return shapes
+
+
+def _mesh_rank(rank: int, world: int, path: str) -> dict:
+    """A rank of phase 12 (a) and (c), one of 4 processes sharing the card
+    over gloo. (a): the Train config on the dp2 x sp2 mesh, this rank's
+    cloud of the batch, ``MESH_STEPS`` steps: losses, step split, peak
+    memory, launches, parameter digests, whether the first step's
+    pyramid equals the parent's ``build_pyramid`` of the cloud, its
+    searches held to kernel 1's plain version (and on rank 0 its
+    scatters to kernel 2's, phase 3's checks). Every collective runs on
+    every rank of its group. (c): ``knn_point_sharded`` of this rank's
+    x-slab of the 365,000-point cloud on the sp4 mesh."""
+    import torch.distributed as dist
+
+    from pointunet_tpu_torch.cli.profile_train import timed_step
+    from pointunet_tpu_torch.core.config import (
+        MeshConfig,
+        brats_pointseg_config,
+    )
+    from pointunet_tpu_torch.models.randlanet import search_grid
+    from pointunet_tpu_torch.ops import knn_cuda, knn_sharded, pyramid
+    from pointunet_tpu_torch.ops.pyramid_sharded import slab_sizes
+    from pointunet_tpu_torch.parallel.mesh import make_mesh
+    from pointunet_tpu_torch.train.pointseg import PointSegTrainer
+
+    _full_f32()
+    data = torch.load(path, weights_only=False)
+    out = {"backend": dist.get_backend()}
+
+    # (a) training on the dp2 x sp2 mesh
+    mesh = make_mesh(MeshConfig(data=2, point=2))
+    trainer = PointSegTrainer(brats_pointseg_config(), mesh=mesh)
+    state = trainer.init_state()
+    xyz, feats, labels = trainer.shard_batch(
+        data["xyz"], data["feats"], data["labels"])
+    built, pyramid_fn = [], trainer.pyramid_fn
+    # the first step's cell-window searches, recorded as they run: 4 on
+    # query slabs of levels 0 and 1, 2 on the whole of level 2
+    searches, search = [], pyramid._search_sorted
+
+    def first_pyramid(x):
+        pyramid._search_sorted = lambda *a: searches.append(a) or search(*a)
+        try:
+            pyr = pyramid_fn(x)
+        finally:
+            pyramid._search_sorted = search
+        if not built:
+            built.append(_to_cpu(pyr))
+            trainer.pyramid_fn = pyramid_fn
+        return pyr
+
+    trainer.pyramid_fn = first_pyramid
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, splits, digests = [], [], []
+    reset_launches()
+    for i in range(MESH_STEPS):
+        with (_capture() if rank == 0 and i == 0
+              else contextlib.nullcontext()) as captured:
+            m, split = timed_step(trainer, state, xyz, feats, labels)
+        losses.append(float(m["loss"]))
+        splits.append(split)
+        digests.append(_digest(state.model))
+        if captured is not None:
+            step_calls = captured
+        log(f"[mesh] rank {rank}: step {i} loss {losses[-1]:.6f}, "
+            f"{sum(split.values()):.3f} ms")
+    counts = read_launches()
+    out["train"] = {
+        "losses": losses, "split_ms": splits, "digests": digests,
+        "launches": counts,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "pyramid_equal": _pyramid_equal(
+            built[0], data["pyramids"][mesh.coords["data"]]),
+    }
+    out["train"]["searches"] = _slab_cases(searches, f"mesh rank {rank}")
+    if rank == 0:
+        out["train"]["step_cases"] = _step_cases(
+            step_calls, search_grid(xyz)[2])
+        del step_calls
+    del trainer, state, built, searches
+    torch.cuda.empty_cache()
+    log(f"[mesh] rank {rank}: (a) done")
+
+    # (c) knn_point_sharded over 4 x-slabs
+    mesh = make_mesh(MeshConfig(data=1, point=4))
+    pts, _ = knn_sharded.sort_by_x(data["cloud"].to(mesh.device))
+    sizes = slab_sizes(pts.shape[0], world)
+    lo = sum(sizes[:rank])
+    slab = pts[lo:lo + sizes[rank]].contiguous()
+    calls, search = [], knn_sharded.knn_cell_window
+    knn_sharded.knn_cell_window = lambda *a: calls.append(a) or search(*a)
+    try:
+        reset_launches()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        idx = knn_sharded.knn_point_sharded(slab, K, mesh)
+        end.record()
+        torch.cuda.synchronize()
+        counts = read_launches()
+    finally:
+        knn_sharded.knn_cell_window = search
+    sp, cs, qp, qc, k, r = calls[0]
+    want = knn_cuda.knn_cell_window(sp, cs, qp, qc, k, r)
+    plain = knn_cuda.knn_cell_window_plain(sp, cs, qp, qc, k, r)
+    out["knn"] = {
+        "rows": (lo, lo + sizes[rank]), "idx": idx.cpu(),
+        "launches": counts, "ms": start.elapsed_time(end),
+        "kernel_ms": cuda_ms(
+            lambda: knn_cuda.knn_cell_window(sp, cs, qp, qc, k, r), 20),
+        "support": sp.shape[0], "grid": r,
+        "rows_differing": int((want != plain).any(1).sum()),
+    }
+    return out
+
+
+def _serve_pipe(dev):
+    """The Serve configuration's fused pipeline (``serve``'s models: the
+    BraTS ``--fast`` nets with weights from seed 0), ROI 192x208x155."""
+    from pointunet_tpu_torch.cli.segment import build_pipeline
+    from pointunet_tpu_torch.pipeline.fused import FusedPointUnet
+
+    p = build_pipeline(N_POINTS)
+    return FusedPointUnet(p.saliency_model, p.pointseg_model, p.scfg, p.pcfg,
+                          threshold=0.9, volume_shape=VOLUME, roi_shape=ROI,
+                          device=dev)
+
+
+def _serve_rank(rank: int, world: int, path: str) -> dict:
+    """A rank of phase 12 (b), one of 2 processes sharing the card over
+    gloo: ``segment_batch_device`` of the 2 volumes on the data=2 mesh, on
+    cuDNN and with ``POINTUNET_FASTCONV=pallas`` (labels, launches, ms)."""
+    import torch.distributed as dist
+
+    from pointunet_tpu_torch.core.config import MeshConfig
+    from pointunet_tpu_torch.parallel.mesh import make_mesh
+
+    _full_f32()
+    mesh = make_mesh(MeshConfig(data=2, point=1))
+    pipe = _serve_pipe(mesh.device)
+    data = np.load(path)
+    mods = torch.from_numpy(data["mods"]).to(mesh.device)
+    seeds = data["seeds"].tolist()
+    out = {"backend": dist.get_backend()}
+    for route, env in (("cudnn", "off"), ("pallas", "pallas")):
+        with _env("POINTUNET_FASTCONV", env), torch.inference_mode():
+            pipe.segment_batch_device(mods, seeds, mesh=mesh)    # warm-up
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            labels = pipe.segment_batch_device(mods, seeds, mesh=mesh)
+            torch.cuda.synchronize()
+            out[route] = {"labels": labels.cpu(), "launches": read_launches(),
+                          "ms": (time.perf_counter() - t0) * 1e3}
+    return out
+
+
+def phase_mesh(dev) -> dict:
+    """Phase 12: the multi-device layer with several ranks sharing this
+    one card over gloo (NCCL takes one rank a card); not a scaling
+    measurement. (a) training on the dp2 x sp2 mesh against the one-card
+    step of the same batch, (b) the data-parallel fused batch against the
+    one-card loop, (c) ``knn_point_sharded`` against exact search."""
+    from pointunet_tpu_torch.cli.profile_train import synthetic_cloud
+    from pointunet_tpu_torch.core.config import brats_pointseg_config
+    from pointunet_tpu_torch.ops.knn_sharded import sort_by_x
+    from pointunet_tpu_torch.ops.pyramid import build_pyramid_batch
+    from pointunet_tpu_torch.parallel.collectives import spawn
+    from pointunet_tpu_torch.train.pointseg import PointSegTrainer
+
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) and (c): the batch, its one-card step and pyramids; the
+        # phase-2 cloud
+        clouds = [synthetic_cloud(dev, N_POINTS, seed=s) for s in MESH_SEEDS]
+        xyz, feats, labels = (torch.cat(a) for a in zip(*clouds))
+        del clouds
+        trainer = PointSegTrainer(brats_pointseg_config(), device="cuda")
+        state = trainer.init_state()
+        reset_launches()
+        _, m = trainer.train_step(state, xyz, feats, labels)
+        one_card = float(m["loss"])
+        one_counts = read_launches()
+        with torch.no_grad():
+            pyramids = [_to_cpu(build_pyramid_batch(xyz[b:b + 1], K, RATIOS))
+                        for b in range(len(MESH_SEEDS))]
+        cloud, _ = _kernel_cloud(dev)
+        path = os.path.join(tmp, "mesh.pt")
+        torch.save({"xyz": xyz.cpu(), "feats": feats.cpu(),
+                    "labels": labels.cpu(), "pyramids": pyramids,
+                    "cloud": cloud.cpu()}, path)
+        del trainer, state, m, pyramids, xyz, feats, labels
+        torch.cuda.empty_cache()
+        log(f"[mesh] one-card step of the batch of {len(MESH_SEEDS)}: loss "
+            f"{one_card:.6f}, launches {one_counts}")
+        t0 = time.perf_counter()
+        ranks = spawn(_mesh_rank, 4, path, timeout=MESH_RANK_TIMEOUT_S)
+        log(f"[mesh] 4 ranks ran (a) and (c) in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # (b): 2 seeded volumes, the one-card loop on both routes
+        rng = np.random.default_rng(7)
+        xx, yy, zz = np.meshgrid(*(np.arange(s) for s in VOLUME),
+                                 indexing="ij")
+        brain = (((xx - 120.0) / 75.0) ** 2 + ((yy - 122.0) / 88.0) ** 2
+                 + ((zz - 76.0) / 70.0) ** 2) < 1.0
+        mods = (rng.standard_normal((2, 4) + VOLUME, dtype=np.float32)
+                * brain).astype(np.float32)
+        seeds = np.array([11, 12])
+        vpath = os.path.join(tmp, "volumes.npz")
+        np.savez(vpath, mods=mods, seeds=seeds)
+        pipe = _serve_pipe(dev)
+        mods_d = torch.from_numpy(mods).to(dev)
+        loop = {}
+        for route, env in (("cudnn", "off"), ("pallas", "pallas")):
+            with _env("POINTUNET_FASTCONV", env), torch.inference_mode():
+                loop[route] = pipe.segment_batch_device(
+                    mods_d, seeds.tolist()).cpu()
+        del pipe, mods_d
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        servers = spawn(_serve_rank, 2, vpath, timeout=MESH_RANK_TIMEOUT_S)
+        log(f"[mesh] 2 ranks ran (b) in {time.perf_counter() - t0:.1f} s")
+
+    # (a)
+    backends = {r["backend"] for r in ranks + servers}
+    log(f"[mesh] backend {sorted(backends)}: ranks share one card, so this "
+        f"is no scaling measurement")
+    train = [r["train"] for r in ranks]
+    per_rank = (LAUNCHES_PER_VOLUME * MESH_STEPS, SCATTERS_PER_STEP * MESH_STEPS)
+    for i, t in enumerate(train):
+        warm = t["split_ms"][1:]
+        log(f"[mesh] (a) rank {i}: losses {t['losses']}, step ms "
+            + ", ".join(f"{sum(s.values()):.3f}" for s in t["split_ms"])
+            + " (split of steps 1-2: " + ", ".join(
+                f"{k} {sum(s[k] for s in warm) / len(warm):.3f}"
+                for k in warm[0])
+            + f"), peak {t['peak_gb']:.3f} GB, launches {t['launches']}, "
+            f"pyramid bit-equal to build_pyramid {t['pyramid_equal']}")
+        got = (t["launches"]["knn_cell_window"],
+               t["launches"]["scatter_sorted"])
+        if (got != per_rank or t["launches"]["conv3d_3x3"]
+                or t["launches"]["windowed_scatter"]
+                or not t["pyramid_equal"]):
+            raise AssertionError(f"mesh rank {i}: launches {t['launches']}, "
+                                 f"pyramid equal {t['pyramid_equal']}")
+    rel = abs(train[0]["losses"][0] - one_card) / abs(one_card)
+    same_params = all(t["digests"] == train[0]["digests"] for t in train)
+    same_loss = all(t["losses"] == train[0]["losses"] for t in train)
+    log(f"[mesh] (a) first-step loss {train[0]['losses'][0]:.6f} against the "
+        f"one-card step's {one_card:.6f}: relative {rel:.3e} (bar "
+        f"{MESH_LOSS_BAR}, bf16); parameters bit-equal across ranks after "
+        f"every step {same_params}; losses equal across ranks {same_loss}")
+    for i, t in enumerate(train):
+        log(f"[mesh] (a) rank {i}'s searches of its first step, rows "
+            f"differing from the plain version and kernel ms: " + "; ".join(
+                f"{s['search']} {s['rows_differing']} {s['ms']:.4f}"
+                for s in t["searches"]))
+        if len(t["searches"]) != LAUNCHES_PER_VOLUME:
+            raise AssertionError(f"mesh rank {i}: {len(t['searches'])} "
+                                 f"searches in a pyramid")
+    if not (rel <= MESH_LOSS_BAR and same_params and same_loss
+            and np.all(np.isfinite(train[0]["losses"]))):
+        raise AssertionError(f"mesh training: loss {rel}, params {same_params}")
+
+    # (b)
+    serve = {}
+    for route in ("cudnn", "pallas"):
+        equal = all(torch.equal(r[route]["labels"], loop[route])
+                    for r in servers)
+        counts = [r[route]["launches"] for r in servers]
+        want_conv = CONVS_PER_FORWARD if route == "pallas" else 0
+        log(f"[mesh] (b) segment_batch_device on data=2, {route}: labels "
+            f"bit-equal to the one-card loop on every rank {equal}; rank ms "
+            + ", ".join(f"{r[route]['ms']:.1f}" for r in servers)
+            + f"; launches {counts}")
+        if not equal or any(
+                c["knn_cell_window"] != LAUNCHES_PER_VOLUME
+                or c["conv3d_3x3"] != want_conv or c["scatter_sorted"]
+                or c["windowed_scatter"] for c in counts):
+            raise AssertionError(f"mesh serving ({route}): equal {equal}, "
+                                 f"launches {counts}")
+        serve[route] = {"launches": counts[0],
+                        "ms": [r[route]["ms"] for r in servers]}
+
+    # (c)
+    pts, _ = sort_by_x(cloud)
+    got = torch.cat([r["knn"]["idx"] for r in ranks]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    sel = torch.randperm(pts.shape[0], generator=gen, device=dev)[:RECALL_QUERIES]
+    recall = float(_tie_aware_recall(pts, pts[sel], got[sel], K).mean())
+    bounds = torch.tensor([r["knn"]["rows"][1] for r in ranks], device=dev)
+    slab_of = torch.bucketize(torch.arange(pts.shape[0], device=dev), bounds,
+                              right=True)
+    cross = float((slab_of[got.long()] != slab_of[:, None]).float().mean())
+    knn = [r["knn"] for r in ranks]
+    log(f"[mesh] (c) knn_point_sharded of the {pts.shape[0]}-point cloud on "
+        f"4 x-slabs: tie-aware recall {recall:.6f} ({sel.numel()} queries), "
+        f"share of neighbours in another slab {cross:.6f}; per rank: "
+        + "; ".join(f"support {k['support']} rows, grid {k['grid']}^3, "
+                    f"{k['ms']:.3f} ms with its all_gathers (the search "
+                    f"alone {k['kernel_ms']:.4f} ms), launches "
+                    f"{k['launches']}, rows differing from the plain "
+                    f"version {k['rows_differing']}" for k in knn))
+    if (recall < 0.99 or cross <= 0.0
+            or any(k["rows_differing"] or k["launches"]["knn_cell_window"] != 1
+                   for k in knn)):
+        raise AssertionError(f"knn_point_sharded: recall {recall}, cross "
+                             f"{cross}, {[k['launches'] for k in knn]}")
+    log(f"[mesh] phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return {
+        "backend": sorted(backends)[0], "loss_rel": rel,
+        "one_card_loss": one_card, "losses": train[0]["losses"],
+        "step_ms": [[sum(s.values()) for s in t["split_ms"]] for t in train],
+        "peak_gb": [t["peak_gb"] for t in train],
+        "train_launches": train[0]["launches"],
+        "searches": train[0]["searches"],
+        "step_cases": train[0]["step_cases"],
+        "serve": serve, "recall": recall, "cross_slab": cross,
+        "knn_launches": knn[0]["launches"],
+        "knn_ms": [k["ms"] for k in knn],
+        "knn_kernel_ms": [k["kernel_ms"] for k in knn],
+    }
+
+
 def _conv_summary(conv, launches, by_path) -> dict:
     """Kernel 3's entry of the ``kernels`` line: the sums over the 19
     convs of one bf16 ROI forward (the serve path's), the f32 window's
@@ -2323,10 +2728,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this run needs the card",
               file=sys.stderr)
         return 1
-    # f32 comparisons hold full f32: cuDNN would run f32 convs in TF32
-    # (F.conv3d is the f32 bar of phase 6) and matmuls could
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _full_f32()
     dev = torch.device("cuda", 0)
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
@@ -2346,6 +2748,8 @@ def main() -> int:
     pancreas = phase_pancreas(dev)
     torch.cuda.empty_cache()
     bridge = phase_bridge(dev)
+    torch.cuda.empty_cache()
+    mesh = phase_mesh(dev)
 
     # each path's launches, counted from 0 over its run; "launches" is
     # the count on the path that carries the kernel in this run: the
@@ -2369,6 +2773,11 @@ def main() -> int:
         "serve_restored": bridge.pop("serve_restored"),
         "serve_restored_pallas": bridge.pop("serve_restored_pallas"),
         "train_resumed": bridge.pop("train_resumed"),
+        # phase 12, launches of one rank (all ranks launch alike)
+        "mesh_train_per_rank": mesh.pop("train_launches"),
+        "mesh_serve_per_rank": mesh["serve"]["cudnn"]["launches"],
+        "mesh_serve_pallas_per_rank": mesh["serve"]["pallas"]["launches"],
+        "mesh_knn_point_sharded_per_rank": mesh.pop("knn_launches"),
     }
 
     def by_path(name):
@@ -2390,6 +2799,9 @@ def main() -> int:
     scatter["pancreas"] = pancreas.pop("step_cases")
     kernel["pancreas"] = pancreas
     kernel["bridge"] = bridge
+    kernel["mesh"] = {k: mesh.pop(k) for k in (
+        "searches", "recall", "cross_slab", "knn_ms", "knn_kernel_ms")}
+    scatter["mesh"] = {"step_cases": mesh.pop("step_cases"), **mesh}
     window["launches_by_path"] = by_path("windowed_scatter")
     entries = [kernel, scatter, conv_entry, window]
     for entry in entries:                  # nvcc seconds of its source

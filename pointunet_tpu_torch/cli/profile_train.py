@@ -81,7 +81,7 @@ def timed_step(trainer: PointSegTrainer, state: TrainState, xyz, feats,
     ev[4].record()
     torch.cuda.synchronize()
     split = {name: ev[i].elapsed_time(ev[i + 1]) for i, name in enumerate(SPLIT)}
-    return {"loss": loss.detach(), "acc": acc.detach()}, split
+    return {"loss": trainer.data_sum(loss), "acc": acc.detach()}, split
 
 
 def _device_ms(entry) -> float:

@@ -1,4 +1,5 @@
 from .config import (
+    MeshConfig,
     PointSegConfig,
     SaliencyConfig,
     TrainConfig,
@@ -9,6 +10,7 @@ from .config import (
 )
 
 __all__ = [
+    "MeshConfig",
     "PointSegConfig",
     "SaliencyConfig",
     "TrainConfig",

@@ -4,8 +4,9 @@ A jax-free copy of ``pointunet_tpu/core/config.py``: importing the
 reference's ``pointunet_tpu.core`` pulls in its checkpoint module (orbax,
 jax), which a machine running only the port does not have. The fields and
 defaults are the reference's, field for field (tests/test_torch_serve.py
-holds them equal), except that ``TrainConfig`` has no ``mesh``: the port
-runs on one card, and its multi-device path is not ported yet.
+holds them equal), except that ``TrainConfig`` has no ``mesh``: nothing of
+the reference reads that field (its trainers take a mesh argument), and
+the port's ``PointSegTrainer`` takes ``mesh=`` as the reference's does.
 """
 from __future__ import annotations
 
@@ -128,9 +129,28 @@ def pancreas_saliency_config(**overrides) -> SaliencyConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """Layout of the (data, point) mesh of ``parallel/mesh.py``.
+
+    data: data parallelism over volumes/clouds (batch axis).
+    point: ranks that share one cloud's pyramid searches (each takes a
+           slab of the query rows of the large levels).
+    """
+
+    data: int = 1
+    point: int = 1
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.point
+
+
+@dataclass(frozen=True)
 class TrainConfig:
-    """Shared training-loop knobs: the reference's, without ``mesh`` (one
-    card) and ``donate_state`` (the trainer mutates its state in place)."""
+    """Shared training-loop knobs: the reference's, without ``mesh``
+    (nothing in the reference reads ``TrainConfig.mesh``: its trainer
+    takes the mesh as an argument, and so does the port's) and
+    ``donate_state`` (the trainer mutates its state in place)."""
 
     seed: int = 0
     log_every: int = 10

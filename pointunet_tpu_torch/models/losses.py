@@ -42,6 +42,26 @@ def _valid_mask_and_remap(
     return valid, labels
 
 
+def weighted_cross_entropy_terms(
+    logits: torch.Tensor,       # (..., C)
+    labels: torch.Tensor,       # (...,) int
+    class_weights: Sequence[float],
+    num_classes: int,
+    ignored: Sequence[int] = (),
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the per-point class-weighted softmax CE over the valid
+    points, their count): a data-parallel rank divides its sum by the
+    count of the global batch."""
+    valid, labels = _valid_mask_and_remap(labels, num_classes, ignored)
+    logits = logits.reshape(-1, num_classes)
+    labels = labels.reshape(-1).long()
+    valid = valid.reshape(-1)
+    w = torch.tensor(class_weights, dtype=logits.dtype, device=logits.device)
+    ce = -F.log_softmax(logits, dim=-1).gather(1, labels[:, None])[:, 0]
+    weighted = ce * w[labels] * valid.to(logits.dtype)
+    return weighted.sum(), valid.sum()
+
+
 def weighted_cross_entropy(
     logits: torch.Tensor,       # (..., C)
     labels: torch.Tensor,       # (...,) int
@@ -50,14 +70,9 @@ def weighted_cross_entropy(
     ignored: Sequence[int] = (),
 ) -> torch.Tensor:
     """Per-point class-weighted softmax CE, mean over the valid points."""
-    valid, labels = _valid_mask_and_remap(labels, num_classes, ignored)
-    logits = logits.reshape(-1, num_classes)
-    labels = labels.reshape(-1).long()
-    valid = valid.reshape(-1)
-    w = torch.tensor(class_weights, dtype=logits.dtype, device=logits.device)
-    ce = -F.log_softmax(logits, dim=-1).gather(1, labels[:, None])[:, 0]
-    weighted = ce * w[labels] * valid.to(logits.dtype)
-    return weighted.sum() / valid.sum().clamp(min=1)
+    total, count = weighted_cross_entropy_terms(
+        logits, labels, class_weights, num_classes, ignored)
+    return total / count.clamp(min=1)
 
 
 def point_dice_loss(

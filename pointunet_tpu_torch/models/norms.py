@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import all_reduce_sum
 from .naming import FlaxNamed
 
 
@@ -53,14 +54,22 @@ class BatchNorm(nn.Module):
     dtype; then ``running = m * running + (1 - m) * batch`` with ``m =
     momentum`` (flax's convention: 0.99 keeps 99 % of the old value, the
     opposite of ``nn.BatchNorm3d``'s, whose running variance is also the
-    unbiased one)."""
+    unbiased one).
+
+    With a process ``group`` (the data axis of a mesh: ranks that hold
+    different rows of one batch), the train-mode statistics are those of
+    the global batch, as GSPMD gives the reference: each rank's f32 sums
+    of x and x^2 and its count go through one autograd-aware sum over
+    the group (``parallel.collectives.all_reduce_sum``), so every rank
+    normalises by, and keeps, the same statistics."""
 
     def __init__(self, features: int, eps: float, momentum: float,
-                 axis: int = -1):
+                 axis: int = -1, group=None):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
         self.axis = axis
+        self.group = group
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -86,10 +95,13 @@ class BatchNorm(nn.Module):
         x32 = x.float()
         n = x.ndim
         dims = tuple(d for d in range(n) if d != self.axis % n)
-        mean = x32.mean(dims)
-        var = torch.clamp(
-            (x32 * x32).mean(dims) - mean * mean, min=0.0
-        )
+        if self.group is None:
+            mean = x32.mean(dims)
+            var = torch.clamp(
+                (x32 * x32).mean(dims) - mean * mean, min=0.0
+            )
+        else:
+            mean, var = self._global_moments(x32, dims)
         if not _frozen.on:
             with torch.no_grad():
                 m = self.momentum
@@ -98,6 +110,20 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x32 - self._bcast(mean, n)) * self._bcast(mul, n)
         return (y + self._bcast(self.bias, n)).to(x.dtype)
+
+    def _global_moments(self, x32: torch.Tensor, dims):
+        """(mean, biased var) over ``dims`` of the rows of every rank of
+        ``self.group``. The count travels in f32 beside the sums: exact
+        up to 2^24 rows a reduction."""
+        c = x32.shape[self.axis]
+        count = x32.new_full((1,), x32.numel() // c)
+        tot = all_reduce_sum(
+            torch.cat([x32.sum(dims), (x32 * x32).sum(dims), count]),
+            self.group,
+        )
+        mean = tot[:c] / tot[-1]
+        var = torch.clamp(tot[c:2 * c] / tot[-1] - mean * mean, min=0.0)
+        return mean, var
 
 
 class GroupNorm(nn.GroupNorm):
@@ -117,9 +143,10 @@ class NormRelu(FlaxNamed):
     """Norm + relu: instance norm (GroupNorm, group size 1) or, with
     ``instance_norm=False``, flax's ``BatchNorm`` over the channels
     (momentum 0.9, eps 1e-5; batch statistics in train mode, the running
-    ones in eval mode). The reference's ``axis_name``, which syncs the
-    batch statistics across a device mesh, belongs to the multi-device
-    work (ROADMAP queue 1, item 6): the port runs on one card."""
+    ones in eval mode). The reference's ``axis_name``, which would sync
+    the batch statistics across a device mesh, is set by none of its
+    callers (its ``SaliencyTrainer`` stores a mesh and never reads it),
+    so the port takes none."""
 
     def __init__(self, channels: int, instance_norm: bool = True):
         super().__init__()

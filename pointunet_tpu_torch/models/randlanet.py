@@ -29,6 +29,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -169,11 +170,19 @@ def _interp(feature: torch.Tensor, interp_idx: torch.Tensor) -> torch.Tensor:
 
 
 class RandLANet(FlaxNamed):
-    """Encoder-decoder over the decimation pyramid."""
+    """Encoder-decoder over the decimation pyramid.
 
-    def __init__(self, config: PointSegConfig):
+    ``data_group``: the process group of the ranks that hold the other
+    rows of the batch (a mesh's data axis). Every ``BatchNorm`` then
+    takes the statistics of the global batch, and the dropout mask is
+    drawn for the global batch from the shared generator, of which this
+    rank keeps its rows, so that a data-parallel step computes what one
+    process computes on the whole batch."""
+
+    def __init__(self, config: PointSegConfig, data_group=None):
         super().__init__()
         cfg = self.config = config
+        self.data_group = data_group
         m = cfg.bn_momentum
         self.child("Dense", nn.Linear(3 + cfg.num_features, 8), "fc0")
         self.child("BatchNorm", BatchNorm(8, 1e-6, m), "bn0")
@@ -198,6 +207,9 @@ class RandLANet(FlaxNamed):
         self.child("SharedMLP", SharedMLP(d_in, 64, m), "fc1")
         self.child("SharedMLP", SharedMLP(64, 32, m), "fc2")
         self.child("Dense", nn.Linear(32, cfg.num_classes), "head")
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.group = data_group
 
     def compute_dtype(self, device: torch.device) -> torch.dtype:
         bf16 = self.config.use_bfloat16
@@ -237,12 +249,22 @@ class RandLANet(FlaxNamed):
         x = self.fc2(self.fc1(feature, dt), dt)
         p = cfg.dropout_rate
         if self.training and p > 0:
-            keep = torch.empty(x.shape, device=x.device).bernoulli_(
-                1.0 - p, generator=generator
-            ).bool()
+            keep = self._dropout_keep(x.shape, x.device, p, generator)
             x = torch.where(keep, x / (1.0 - p), x.new_zeros(()))
         # the last Linear stays f32
         return F.linear(x.float(), self.head.weight, self.head.bias)
+
+    def _dropout_keep(self, shape, device, p: float, generator):
+        """Keep-mask of this rank's (B, N, C) rows: drawn for the global
+        batch (data group size x B rows) and sliced at this rank's."""
+        size, rank = 1, 0
+        if self.data_group is not None:
+            size = dist.get_world_size(self.data_group)
+            rank = dist.get_rank(self.data_group)
+        full = (shape[0] * size,) + tuple(shape[1:])
+        keep = torch.empty(full, device=device).bernoulli_(
+            1.0 - p, generator=generator)
+        return keep[rank * shape[0]:(rank + 1) * shape[0]].bool()
 
 
 def _he_truncated_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -264,13 +286,13 @@ def _glorot_uniform_(w: torch.Tensor, generator: torch.Generator) -> None:
 
 
 def init_randlanet(
-    config: PointSegConfig, generator: torch.Generator
+    config: PointSegConfig, generator: torch.Generator, data_group=None
 ) -> RandLANet:
     """A ``RandLANet`` with the reference's initialisation drawn from
     ``generator`` (CPU): He truncated-normal over fan_out for the
     SharedMLP Linears and the head, glorot-uniform for fc0 and the
     attention scores, zero biases, identity batch norms. In eval mode."""
-    model = RandLANet(config)
+    model = RandLANet(config, data_group)
     glorot = {id(model.fc0)} | {
         id(m.score) for m in model.modules() if isinstance(m, AttPooling)
     }

@@ -22,7 +22,7 @@ reference bit for bit.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -57,9 +57,27 @@ def _search_sorted(sp, s_ids, qp, qc3, k, r):
     )
 
 
-def build_pyramid(xyz: torch.Tensor, k: int, ratios: Tuple[int, ...]) -> Pyramid:
+class QuerySlab(NamedTuple):
+    """The part of a level's searches that this rank runs: the query
+    ``rows`` (a slice of the level's sorted rows), and ``gather``, which
+    assembles the level's (N_i, k) result from every rank's rows."""
+    rows: slice
+    gather: Callable[[torch.Tensor], torch.Tensor]
+
+
+def build_pyramid(
+    xyz: torch.Tensor, k: int, ratios: Tuple[int, ...],
+    split: Optional[Callable[[int], Optional[QuerySlab]]] = None,
+) -> Pyramid:
     """Build the decimation pyramid of one pre-shuffled cloud (N, 3).
-    Levels come back cell-sorted (see the module docstring)."""
+    Levels come back cell-sorted (see the module docstring).
+
+    ``split`` (``ops/pyramid_sharded.py``) is called with each level's
+    row count: None searches the whole level here; a ``QuerySlab`` runs
+    the level's self and up searches for its query rows only, against
+    the whole level, and gathers the rest. A query's neighbours do not
+    depend on the other queries of a search, so the result is the same
+    bit for bit."""
     n = xyz.shape[0]
     for i, r_ in enumerate(ratios):
         n //= r_
@@ -97,11 +115,15 @@ def build_pyramid(xyz: torch.Tensor, k: int, ratios: Tuple[int, ...]) -> Pyramid
         ns_i = cur_x.shape[0]
         n_sub = ns_i // ratio
         grid_search = ns_i > GRID_THRESHOLD
+        slab = split(ns_i) if split is not None else None
+        q = slice(None) if slab is None else slab.rows
         if grid_search:
             cc, ids = shifted(cur_c3, i)
-            neigh = _search_sorted(cur_x, ids, cur_x, cc, k, rs[i])
+            neigh = _search_sorted(cur_x, ids, cur_x[q], cc[q], k, rs[i])
         else:
-            neigh = knn(cur_x, cur_x, k)
+            neigh = knn(cur_x, cur_x[q], k)
+        if slab is not None:
+            neigh = slab.gather(neigh)
         # decimation: original row < n_sub; cur_ord is a permutation, so
         # exactly n_sub rows, kept in this level's sort order
         idx_rel = torch.nonzero(cur_ord < n_sub).squeeze(1)
@@ -115,9 +137,11 @@ def build_pyramid(xyz: torch.Tensor, k: int, ratios: Tuple[int, ...]) -> Pyramid
             # cloud and the queries are both sorted
             _, sids = shifted(sub_c3, i)
             qcc, _ = shifted(cur_c3, i)
-            up = _search_sorted(sub_x, sids, cur_x, qcc, 1, rs[i])
+            up = _search_sorted(sub_x, sids, cur_x[q], qcc[q], 1, rs[i])
         else:
-            up = knn(sub_x, cur_x, 1)
+            up = knn(sub_x, cur_x[q], 1)
+        if slab is not None:
+            up = slab.gather(up)
         # re-sort the decimated level by its own grid's ids; up values are
         # remapped into the re-sorted row space
         _, sids_next = shifted(sub_c3, i + 1)
@@ -134,10 +158,11 @@ def build_pyramid(xyz: torch.Tensor, k: int, ratios: Tuple[int, ...]) -> Pyramid
 
 
 def build_pyramid_batch(
-    xyz: torch.Tensor, k: int, ratios: Tuple[int, ...]
+    xyz: torch.Tensor, k: int, ratios: Tuple[int, ...], split=None
 ) -> Pyramid:
-    """(B, N, 3) -> Pyramid with a leading batch dim on every leaf."""
-    pyrs = [build_pyramid(x, k, ratios) for x in xyz]
+    """(B, N, 3) -> Pyramid with a leading batch dim on every leaf
+    (``split`` as in ``build_pyramid``)."""
+    pyrs = [build_pyramid(x, k, ratios, split) for x in xyz]
     return Pyramid(*(
         tuple(torch.stack(level) for level in zip(*field))
         if isinstance(field[0], tuple) else torch.stack(field)

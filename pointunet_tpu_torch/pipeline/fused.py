@@ -14,8 +14,9 @@ Four stages, each a callable of its own so that they can be timed apart:
      of labels back to the (Z, Y, X) voxel grid.
 
 ``segment_device`` chains them; ``segment_batch_device`` runs it over a
-batch of volumes on one card; ``segment_volume`` wraps it for numpy
-(C, X, Y, Z) input and (X, Y, Z) label output.
+batch of volumes, on one card or split over a mesh's data axis;
+``segment_volume`` wraps it for numpy (C, X, Y, Z) input and (X, Y, Z)
+label output.
 """
 from __future__ import annotations
 
@@ -27,6 +28,8 @@ from ..core.config import PointSegConfig, SaliencyConfig
 from ..ops.pyramid import build_pyramid_batch
 from ..ops.sampling import sample_cloud_device
 from ..ops.scatter import scatter_labels_to_volume
+from ..parallel.collectives import all_gather_rows
+from ..parallel.mesh import DATA_AXIS, Mesh, batch_sharding
 
 
 def _pad_to_multiple(v: int, m: int) -> int:
@@ -207,27 +210,41 @@ class FusedPointUnet:
         mesh=None,
     ) -> torch.Tensor:
         """(B, C, X, Y, Z) -> (B, Z, Y, X) uint8 labels: ``segment_device``
-        on each volume in turn, on one card, volume b drawing its points
-        from a generator seeded with ``seeds[b]`` (the reference maps its
-        single-volume program over the batch). Spreading the batch over
-        several devices (``mesh``) is not ported (ROADMAP queue 1, item
-        6)."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "segment_batch_device: the multi-device batch (mesh=) is "
-                "not ported; it runs on one card (ROADMAP queue 1, item 6)"
-            )
+        of each volume, volume b drawing its points from a generator
+        seeded with ``seeds[b]`` (the reference maps its single-volume
+        program over the batch).
+
+        With ``mesh`` (``parallel.mesh.Mesh``), every rank passes the
+        whole batch: the volumes are split over the data axis (point ranks
+        compute the same ones, as the reference's ``P(data)`` replicates
+        them), each rank segments its own, and the labels are gathered
+        over the data group, so every rank returns the whole batch, equal
+        to the one-card loop."""
         seeds = [int(s) for s in seeds]
         if len(seeds) != modalities.shape[0]:
             raise ValueError(
                 f"segment_batch_device: {modalities.shape[0]} volumes and "
                 f"{len(seeds)} seeds"
             )
-        return torch.stack([
+        rows = slice(None)
+        if mesh is not None:
+            if not isinstance(mesh, Mesh):
+                raise TypeError(
+                    "segment_batch_device: mesh must be a parallel.mesh.Mesh, "
+                    f"got {type(mesh).__name__}"
+                )
+            rows = batch_sharding(mesh, len(seeds))
+        labels = torch.stack([
             self.segment_device(
                 m, torch.Generator(device=m.device).manual_seed(s))
-            for m, s in zip(modalities, seeds)
+            for m, s in zip(modalities[rows], seeds[rows])
         ])
+        if mesh is None or mesh.shape[DATA_AXIS] == 1:
+            return labels
+        return all_gather_rows(
+            labels, [labels.shape[0]] * mesh.shape[DATA_AXIS],
+            mesh.groups[DATA_AXIS],
+        )
 
     def segment_volume(
         self, modalities: np.ndarray, seed: int = 0, brats_labels: bool = True,

@@ -11,8 +11,24 @@ read at the update count before the update, as optax's schedule does.
 
 Unlike the reference's pure functions, the state (``TrainState``: model,
 optimizer, step, dropout generator) is mutated in place: ``train_step``
-updates it and returns it. There is no device mesh and no buffer
-donation; the port runs on one card.
+updates it and returns it; there is no buffer donation.
+
+Under a mesh (``parallel/mesh.py``; the reference's ``mesh=``, which
+GSPMD shards), one process runs each rank and ``train_step`` takes the
+rank's rows of the batch (``shard_batch``):
+
+* data axis: the batch norms take the global batch's statistics and the
+  dropout mask is the global batch's (``RandLANet(data_group=)``); each
+  rank divides its weighted CE sum by the global valid count, backpropagates
+  that share, and the parameter gradients are summed (not averaged) over
+  the data group before the Adam update, so the parameters stay
+  bit-equal on every rank; the reported loss and accuracy are global;
+* point axis: the ranks of a point group hold one replica of the network
+  and the same rows; they share the large levels' pyramid searches
+  (``build_pyramid_sharded`` from ``point_shard_min`` rows) and reduce
+  nothing else; each takes its point group's first rank's gradient, so
+  that the replicas stay bit-equal on the card too, where the backward's
+  atomic sums (``index_add_``) may round differently on two replicas.
 """
 from __future__ import annotations
 
@@ -21,11 +37,15 @@ from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.config import PointSegConfig, TrainConfig
-from ..models.losses import weighted_cross_entropy
+from ..models.losses import weighted_cross_entropy_terms
 from ..models.randlanet import RandLANet, init_randlanet
 from ..ops.pyramid import Pyramid, build_pyramid_batch, take_level0
+from ..ops.pyramid_sharded import build_pyramid_sharded
+from ..parallel import collectives
+from ..parallel.mesh import DATA_AXIS, POINT_AXIS, Mesh, shard_batch
 from .metrics import confusion_matrix, iou_from_confusion
 
 ADAM_BETAS = (0.9, 0.999)
@@ -75,10 +95,27 @@ class PointSegTrainer:
         config: PointSegConfig,
         train_config: Optional[TrainConfig] = None,
         device: str = "cuda",
+        mesh: Optional[Mesh] = None,
+        point_shard_min: int = 32_768,
     ):
+        """``mesh``: run as this rank of a (data, point) mesh, on the
+        mesh's device (``device`` is then not read).
+        ``point_shard_min``: the smallest pyramid level whose searches
+        the point group shares; smaller levels search on every rank."""
         self.cfg = config
         self.tcfg = train_config or TrainConfig()
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.point_shard_min = point_shard_min
+        self.device = torch.device(device) if mesh is None else mesh.device
+        # the data and point groups when they have other ranks; None on
+        # one process
+        self.data_group, self.point_group = (
+            mesh.groups[axis]
+            if mesh is not None and mesh.shape[axis] > 1 else None
+            for axis in (DATA_AXIS, POINT_AXIS)
+        )
+        self.is_main = mesh is None or (
+            mesh.coords[DATA_AXIS] == 0 and mesh.coords[POINT_AXIS] == 0)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "PointSegTrainer: no CUDA device; pass device='cpu' to run "
@@ -98,7 +135,8 @@ class PointSegTrainer:
         )
 
     def init_state(self, seed: int = 0) -> TrainState:
-        model = init_randlanet(self.cfg, torch.Generator().manual_seed(seed))
+        model = init_randlanet(
+            self.cfg, torch.Generator().manual_seed(seed), self.data_group)
         model = model.to(self.device)
         opt = torch.optim.Adam(
             model.parameters(), lr=self.lr_at(0), betas=ADAM_BETAS,
@@ -108,20 +146,43 @@ class PointSegTrainer:
         return TrainState(model, opt, 0, gen)
 
     def pyramid_fn(self, xyz: torch.Tensor) -> Pyramid:
+        cfg = self.cfg
         with torch.no_grad():
-            return build_pyramid_batch(
-                xyz, self.cfg.k_n, self.cfg.sub_sampling_ratio
-            )
+            if self.mesh is not None and self.mesh.shape[POINT_AXIS] > 1:
+                return build_pyramid_sharded(
+                    xyz, cfg.k_n, cfg.sub_sampling_ratio, self.mesh,
+                    shard_min=self.point_shard_min,
+                )
+            return build_pyramid_batch(xyz, cfg.k_n, cfg.sub_sampling_ratio)
+
+    def shard_batch(self, *arrays):
+        """This rank's rows of each (B, ...) array (``parallel.mesh
+        .shard_batch``); the arrays as they are without a mesh."""
+        if self.mesh is None:
+            return arrays
+        return shard_batch(self.mesh, *arrays)
+
+    def data_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the data group, outside autograd."""
+        t = t.detach().clone()
+        if self.data_group is not None:
+            collectives.all_reduce_(t, self.data_group)
+        return t
 
     def _loss_fn(self, state: TrainState, pyramid, feats, labels):
+        """(this rank's share of the loss, global accuracy): the weighted
+        CE sum of its rows over the global batch's valid count."""
         logits = state.model(feats, pyramid, state.generator)
         cfg = self.cfg
-        loss = weighted_cross_entropy(
+        total, count = weighted_cross_entropy_terms(
             logits, labels, cfg.class_weights(), cfg.num_classes,
             cfg.ignored_label_inds,
         )
-        acc = (logits.argmax(-1) == labels).float().mean()
-        return loss, acc
+        loss = total / self.data_sum(count).clamp(min=1)
+        hits = (logits.argmax(-1) == labels).sum()
+        seen = torch.tensor(labels.numel(), device=hits.device)
+        hits, seen = self.data_sum(torch.stack([hits, seen]))
+        return loss, hits.float() / seen.float()
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype).to(self.device)
@@ -136,20 +197,44 @@ class PointSegTrainer:
         return self._loss_fn(state, pyramid, feats, labels)
 
     def apply_update(self, state: TrainState) -> None:
-        """One Adam update from the parameters' ``.grad``, at the
+        """One Adam update from the parameters' ``.grad`` (under a mesh,
+        first made the same on every rank: ``_sync_gradients``), at the
         learning rate of the update count before it."""
+        if self.data_group is not None or self.point_group is not None:
+            self._sync_gradients(state.model)
         for group in state.optimizer.param_groups:
             group["lr"] = self.lr_at(state.step)
         state.optimizer.step()
         state.step += 1
 
+    def _sync_gradients(self, model: torch.nn.Module) -> None:
+        """Every parameter's ``.grad``, flattened into one buffer: taken
+        from the first rank of the point group (the replicas compute the
+        same gradient up to the order of the backward's atomic sums on
+        the card, such as ``index_add_``'s; nothing is summed over the
+        point axis), then summed over the data group."""
+        params = list(model.parameters())
+        flat = torch.cat([
+            (p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
+            for p in params
+        ])
+        if self.point_group is not None:
+            size = dist.get_world_size(self.point_group)
+            flat = collectives.all_gather_rows(
+                flat, [flat.numel()] * size, self.point_group)[:flat.numel()]
+        if self.data_group is not None:
+            collectives.all_reduce_(flat, self.data_group)
+        for p, g in zip(params, flat.split([p.numel() for p in params])):
+            p.grad = g.view_as(p)
+
     def train_core(self, state: TrainState, pyramid: Pyramid, feats, labels):
         """Forward, loss, backward and Adam update on a built pyramid;
-        the gradients stay in the parameters' ``.grad``."""
+        the gradients stay in the parameters' ``.grad``. The loss is the
+        global batch's."""
         loss, acc = self.forward_loss(state, pyramid, feats, labels)
         loss.backward()
         self.apply_update(state)
-        return state, {"loss": loss.detach(), "acc": acc.detach()}
+        return state, {"loss": self.data_sum(loss), "acc": acc.detach()}
 
     def train_step(self, state: TrainState, xyz, feats, labels):
         xyz = self._tensor(xyz, torch.float32)
@@ -160,7 +245,8 @@ class PointSegTrainer:
         )
 
     def eval_step(self, state: TrainState, xyz, feats, labels=None):
-        """Softmax probabilities (B, N, C) in the caller's row order."""
+        """Softmax probabilities (B, N, C) in the caller's row order (of
+        this rank's rows, under a mesh)."""
         xyz = self._tensor(xyz, torch.float32)
         pyramid = self.pyramid_fn(xyz)
         feats = take_level0(pyramid, self._tensor(feats, torch.float32))
@@ -173,7 +259,9 @@ class PointSegTrainer:
     def evaluate(
         self, state: TrainState, val_iter: Iterable, log: Callable = print
     ) -> float:
-        """Confusion-matrix mean IoU (%) over a validation iterator."""
+        """Confusion-matrix mean IoU (%) over a validation iterator of
+        global batches; under a mesh each rank scores its rows and the
+        confusion matrix is summed over the data group."""
         nc = self.cfg.num_classes
         conf = np.zeros((nc, nc), np.int64)
         correct = seen = 0
@@ -188,9 +276,10 @@ class PointSegTrainer:
                 remap[lab_val] = nxt
                 nxt += 1
         for xyz, feats, labels in val_iter:
+            xyz, feats, labels = self.shard_batch(xyz, feats, labels)
             probs = self.eval_step(state, xyz, feats, labels).cpu().numpy()
             pred = probs.argmax(-1).reshape(-1)
-            lab = np.asarray(labels).reshape(-1)
+            lab = np.asarray(torch.as_tensor(labels).cpu()).reshape(-1)
             valid = np.ones_like(lab, bool)
             for ign in ignored:
                 valid &= lab != ign
@@ -198,6 +287,13 @@ class PointSegTrainer:
             conf += confusion_matrix(lab, pred, nc)
             correct += int((pred == lab).sum())
             seen += lab.size
+        if self.data_group is not None:
+            totals = self.data_sum(torch.as_tensor(
+                np.append(conf.reshape(-1), [correct, seen]),
+                device=self.device))
+            totals = totals.cpu().numpy()
+            conf = totals[:-2].reshape(nc, nc)
+            correct, seen = int(totals[-2]), int(totals[-1])
         iou = iou_from_confusion(conf)
         miou = float(iou.mean()) * 100.0
         log(
@@ -218,10 +314,15 @@ class PointSegTrainer:
     ) -> TrainState:
         """Epoch loop: train steps, epoch-end eval, best-mIoU checkpoint.
         ``metrics`` (a ``core.metrics_sink.MetricsLogger``) receives
-        loss/acc/lr every ``log_every`` steps and the mIoU per epoch."""
+        loss/acc/lr every ``log_every`` steps and the mIoU per epoch.
+        Under a mesh every rank reads the same global batches and takes
+        its rows; rank 0 alone logs, records metrics and saves, and the
+        ranks wait for its checkpoint at a barrier."""
         from ..core.debug import StepTimer, format_eta
         from ..data.prefetch import prefetch
 
+        if not self.is_main:
+            log, metrics, checkpointer = (lambda *a, **k: None), None, None
         timer = StepTimer(self.cfg.max_epoch * max(self.cfg.train_steps, 1))
         for epoch in range(self.cfg.max_epoch):
             log(f"****EPOCH {epoch}****")
@@ -229,6 +330,7 @@ class PointSegTrainer:
                 train_epoch_iter(), self.tcfg.prefetch_buffers
             )
             for i, (xyz, feats, labels) in enumerate(epoch_iter):
+                xyz, feats, labels = self.shard_batch(xyz, feats, labels)
                 state, m = self.train_step(state, xyz, feats, labels)
                 if (i + 1) % self.tcfg.log_every == 0:
                     t = timer.tick(self.tcfg.log_every)
@@ -255,5 +357,7 @@ class PointSegTrainer:
                     self._best_miou = miou
                     if checkpointer is not None:
                         checkpointer.save(state, state.step, miou)
+                    if self.mesh is not None:
+                        dist.barrier()
                 log(f"Best m_IoU is: {self._best_miou:5.3f}")
         return state

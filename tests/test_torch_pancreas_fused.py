@@ -136,7 +136,8 @@ def test_segment_volume_pancreas_labels(pipes, ct):
 
 def test_segment_batch_device(pipes, ct):
     """B = 2: the same as two ``segment_device`` calls with generators of
-    those seeds; the multi-device batch raises."""
+    those seeds; a mesh that is not a ``parallel.mesh.Mesh`` raises (the
+    mesh branch: tests/test_torch_parallel.py)."""
     _, tpipe = pipes
     mods = torch.from_numpy(np.stack([ct, ct[:, ::-1].copy()]))
     got = tpipe.segment_batch_device(mods, [4, 5])
@@ -145,7 +146,7 @@ def test_segment_batch_device(pipes, ct):
         want = tpipe.segment_device(mods[b], torch.Generator().manual_seed(seed))
         assert torch.equal(got[b], want)
     assert not torch.equal(got[0], got[1])
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         tpipe.segment_batch_device(mods, [4, 5], mesh=object())
     with pytest.raises(ValueError, match="2 volumes and 1 seeds"):
         tpipe.segment_batch_device(mods, [4])

@@ -152,10 +152,10 @@ def test_serve_without_device_needs_the_card(tmp_path, monkeypatch):
 def test_port_imports_no_jax():
     """Neither the port (its serving, segmenting and training entry
     points, both trainers, its kernels' wrappers, the Pancreas path, the
-    offline prep and scoring tools, the host CLIs, the native ops and the
-    checkpoint reader) nor chip_smoke.py loads JAX, any module of the JAX
-    package (``pointunet_tpu``) or the exporter, which is the one file
-    that imports both."""
+    offline prep and scoring tools, the host CLIs, the native ops, the
+    checkpoint reader and the multi-device layer) nor chip_smoke.py loads
+    JAX, any module of the JAX package (``pointunet_tpu``) or the
+    exporter, which is the one file that imports both."""
     code = (
         "import sys\n"
         "import pointunet_tpu_torch.cli.serve, pointunet_tpu_torch.convert\n"
@@ -196,6 +196,10 @@ def test_port_imports_no_jax():
         "import pointunet_tpu_torch.cli.oversampling_analysis\n"
         "import pointunet_tpu_torch.cli.visualize\n"
         "import pointunet_tpu_torch.cli.data_prepare_blocks\n"
+        "import pointunet_tpu_torch.parallel\n"
+        "import pointunet_tpu_torch.parallel.collectives\n"
+        "import pointunet_tpu_torch.ops.pyramid_sharded\n"
+        "import pointunet_tpu_torch.ops.knn_sharded\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in\n"
@@ -224,15 +228,15 @@ def test_no_port_module_imports_the_exporter():
     assert offenders == []
 
 
-# fields the port leaves out on purpose: TrainConfig's device mesh (the
-# port runs on one card; its multi-device path is not ported yet) and
-# donate_state (the port's trainer mutates its state in place, so there
-# is nothing to donate)
+# fields the port leaves out on purpose: TrainConfig's device mesh
+# (nothing in the reference reads it; both trainers take the mesh as an
+# argument) and donate_state (the port's trainer mutates its state in
+# place, so there is nothing to donate)
 OMITTED_FIELDS = {"TrainConfig": {"mesh", "donate_state"}}
 
 
 @pytest.mark.parametrize(
-    "name", ["PointSegConfig", "SaliencyConfig", "TrainConfig"]
+    "name", ["PointSegConfig", "SaliencyConfig", "TrainConfig", "MeshConfig"]
 )
 def test_config_fields_match_reference(name):
     ref = getattr(ref_config, name)
