@@ -130,14 +130,25 @@ fails (non-zero exit, no result line) on any fault. Phases:
    several ranks sharing this one card over gloo (NCCL takes one rank a
    card; the backend is printed; ranks sharing a card measure no
    scaling). (a) 4 ranks, ``MeshConfig(data=2, point=2)``: the Train
-   config on a batch of 2 synthetic clouds, 3 steps; each rank's first
+   config on a batch of 2 synthetic clouds, 3 steps, the point net's
+   activations sharded along the point axis (each point rank runs its
+   slab of every level's rows, forward and backward); each rank's first
    pyramid (``build_pyramid_sharded``: kernel 1 on query slabs of levels
    0 and 1, level 2 whole) bit-equal to the one-card ``build_pyramid`` of
-   its cloud, exactly 6 KNN and 8 scatter launches a step on every
-   rank, the first loss within 5e-3 relative of the one-card step of the
-   same batch (bf16), the parameters bit-equal across ranks after every
-   step; rank 0 holds the slab searches and the step's scatters to the
-   kernels' plain versions (phases 2 and 3's bars). (b) 2 ranks,
+   its cloud, exactly 6 KNN and 5 scatter launches a step on every rank
+   (``sorted_scatters`` of the rank's slabs: the level-2 gathers and the
+   level-1 pool fall under kernel 2's gate), the first loss within 5e-3
+   relative of the one-card step of the same batch (bf16), the
+   parameters bit-equal across ranks after every step; every rank holds
+   its slab searches to kernel 1's plain version, rank 0 its step's
+   scatters (of query slabs) to kernel 2's (phases 2 and 3's bars). (d)
+   the same 4 ranks, ``MeshConfig(data=1, point=4)``: the first cloud
+   alone (batch 1), 2 steps: the first loss within 5e-3 relative of the
+   one-card batch-1 step, parameters bit-equal across ranks, 6 KNN and 5
+   scatter launches a step a rank, every rank's searches and step
+   scatters held to the plain versions, each rank's peak memory at most
+   half the one-card batch-1 step's (measured in this run), each rank's
+   forward and backward ms. (b) 2 ranks,
    ``MeshConfig(data=2)``: ``segment_batch_device`` of 2 seeded volumes
    at the Serve config, on cuDNN and with ``POINTUNET_FASTCONV=pallas``:
    labels on every rank bit-equal to the one-card loop, 6 KNN (and 19
@@ -208,6 +219,8 @@ NATIVE_QUERIES = 4096          # knn_batch queries held to brute force
 MESH_STEPS = 3                 # phase 12: train steps on the dp2 x sp2 mesh
 MESH_SEEDS = (5, 6)            # its batch: 2 synthetic clouds
 MESH_LOSS_BAR = 5e-3           # its first loss against the one-card step's
+MESH_SP4_STEPS = 2             # phase 12 (d): steps on the sp4 mesh, batch 1
+MESH_SP4_PEAK = 0.5            # (d): a rank's peak over the one-card step's
 MESH_RANK_TIMEOUT_S = 300      # a phase-12 launch whose ranks take longer fails
 # the card's peaks (NVIDIA H100 SXM data sheet): device memory bytes/s,
 # f32 operations/s outside the tensor cores, bf16 on the tensor cores
@@ -388,17 +401,21 @@ def knn_searches(cfg) -> int:
                    for i in range(len(cfg.sub_sampling_ratio)))
 
 
-def sorted_scatters(cfg) -> int:
-    """Kernel-2 launches of one train step: the backward of each sorted
-    gather that passes the gate (``MIN_ROWS`` flat rows and a support of
-    more than ``GRID_THRESHOLD`` points): two self gathers (n_i x k rows)
-    and one pool gather (n_(i+1) x k rows) at each level i."""
+def sorted_scatters(cfg, parts: int = 1, part: int = 0) -> int:
+    """Kernel-2 launches of one train step of a cloud on rank ``part`` of
+    a point group of ``parts``: the backward of each sorted gather that
+    passes the gate (``MIN_ROWS`` flat rows and a support of more than
+    ``GRID_THRESHOLD`` points): two self gathers (m_i x k rows) and one
+    pool gather (m_(i+1) x k rows) at each level i, where m_i is the
+    rank's slab of level i's n_i rows (all of them on one card)."""
     from pointunet_tpu_torch.ops.pyramid import GRID_THRESHOLD
+    from pointunet_tpu_torch.ops.pyramid_sharded import slab_sizes
     from pointunet_tpu_torch.ops.scatter_sorted import MIN_ROWS
 
     sizes, k = cfg.level_sizes, cfg.k_n
+    m = [slab_sizes(n, parts)[part] for n in sizes]
     return sum(
-        2 * (sizes[i] * k >= MIN_ROWS) + (sizes[i + 1] * k >= MIN_ROWS)
+        2 * (m[i] * k >= MIN_ROWS) + (m[i + 1] * k >= MIN_ROWS)
         for i in range(len(cfg.sub_sampling_ratio))
         if sizes[i] > GRID_THRESHOLD
     )
@@ -745,7 +762,8 @@ def phase_window(dev, pyr) -> dict:
 
 def _step_cases(captured, r0, expected=SCATTERS_PER_STEP) -> list:
     """The checks of phase 3 on the scatter inputs of one train step: each
-    with ct widened to f32 and with ct as the step gave it (bf16)."""
+    with ct widened to f32 and with ct as the step gave it (bf16). A pool
+    gather's queries come through their permutation (``q_perm``)."""
     if len(captured) != expected:
         raise AssertionError(
             f"expected {expected} sorted scatters in a train step, "
@@ -754,8 +772,9 @@ def _step_cases(captured, r0, expected=SCATTERS_PER_STEP) -> list:
     grids = [((r0 - 1) >> lvl) + 1 for lvl in range(3)]
     cases = []
     for args in captured:
-        ct, idx, s_ids, qcs, k, r = args[:6]
-        kind = "self" if ct.shape[0] == s_ids.shape[0] * k else "pool"
+        ct, r = args[0], args[5]
+        q_perm = args[6] if len(args) > 6 else None
+        kind = "self" if q_perm is None else "pool"
         name = f"step L{grids.index(r)} {kind}"
         cases.append(_scatter_case(name, (ct.float(),) + tuple(args[1:])))
         if ct.dtype != torch.float32:
@@ -2373,39 +2392,26 @@ def _slab_cases(calls, tag: str) -> list:
     return shapes
 
 
-def _mesh_rank(rank: int, world: int, path: str) -> dict:
-    """A rank of phase 12 (a) and (c), one of 4 processes sharing the card
-    over gloo. (a): the Train config on the dp2 x sp2 mesh, this rank's
-    cloud of the batch, ``MESH_STEPS`` steps: losses, step split, peak
-    memory, launches, parameter digests, whether the first step's
-    pyramid equals the parent's ``build_pyramid`` of the cloud, its
-    searches held to kernel 1's plain version (and on rank 0 its
-    scatters to kernel 2's, phase 3's checks). Every collective runs on
-    every rank of its group. (c): ``knn_point_sharded`` of this rank's
-    x-slab of the 365,000-point cloud on the sp4 mesh."""
-    import torch.distributed as dist
-
+def _mesh_train(rank: int, mesh, data: dict, rows: slice, steps: int,
+                check_scatters: bool, tag: str) -> dict:
+    """``steps`` train steps of the Train config on ``mesh``, from its
+    clouds ``rows`` of the batch in ``data``: losses, step split, peak
+    memory (a rank's, over the steps), launches, parameter digests,
+    whether the first pyramid equals the one-card ``build_pyramid`` of
+    this rank's cloud, its cell-window searches held to kernel 1's plain
+    version and, with ``check_scatters``, its first step's scatters to
+    kernel 2's (phase 3's checks). Every collective runs on every rank of
+    its group."""
     from pointunet_tpu_torch.cli.profile_train import timed_step
-    from pointunet_tpu_torch.core.config import (
-        MeshConfig,
-        brats_pointseg_config,
-    )
+    from pointunet_tpu_torch.core.config import brats_pointseg_config
     from pointunet_tpu_torch.models.randlanet import search_grid
-    from pointunet_tpu_torch.ops import knn_cuda, knn_sharded, pyramid
-    from pointunet_tpu_torch.ops.pyramid_sharded import slab_sizes
-    from pointunet_tpu_torch.parallel.mesh import make_mesh
+    from pointunet_tpu_torch.ops import pyramid
     from pointunet_tpu_torch.train.pointseg import PointSegTrainer
 
-    _full_f32()
-    data = torch.load(path, weights_only=False)
-    out = {"backend": dist.get_backend()}
-
-    # (a) training on the dp2 x sp2 mesh
-    mesh = make_mesh(MeshConfig(data=2, point=2))
     trainer = PointSegTrainer(brats_pointseg_config(), mesh=mesh)
     state = trainer.init_state()
     xyz, feats, labels = trainer.shard_batch(
-        data["xyz"], data["feats"], data["labels"])
+        data["xyz"][rows], data["feats"][rows], data["labels"][rows])
     built, pyramid_fn = [], trainer.pyramid_fn
     # the first step's cell-window searches, recorded as they run: 4 on
     # query slabs of levels 0 and 1, 2 on the whole of level 2
@@ -2425,38 +2431,66 @@ def _mesh_rank(rank: int, world: int, path: str) -> dict:
     trainer.pyramid_fn = first_pyramid
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, splits, digests = [], [], []
+    losses, splits, digests, peaks = [], [], [], []
     reset_launches()
-    for i in range(MESH_STEPS):
-        with (_capture() if rank == 0 and i == 0
+    for i in range(steps):
+        with (_capture() if check_scatters and i == 0
               else contextlib.nullcontext()) as captured:
             m, split = timed_step(trainer, state, xyz, feats, labels)
         losses.append(float(m["loss"]))
         splits.append(split)
+        peaks.append(m["peak_gb"])
         digests.append(_digest(state.model))
         if captured is not None:
             step_calls = captured
-        log(f"[mesh] rank {rank}: step {i} loss {losses[-1]:.6f}, "
-            f"{sum(split.values()):.3f} ms")
-    counts = read_launches()
-    out["train"] = {
+        log(f"[mesh] {tag} rank {rank}: step {i} loss {losses[-1]:.6f}, "
+            f"{sum(split.values()):.3f} ms, peak {peaks[-1]:.3f} GB")
+    out = {
         "losses": losses, "split_ms": splits, "digests": digests,
-        "launches": counts,
-        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": read_launches(), "peak_gb": max(peaks),
         "pyramid_equal": _pyramid_equal(
-            built[0], data["pyramids"][mesh.coords["data"]]),
+            built[0], data["pyramids"][rows.start + mesh.coords["data"]]),
+        "searches": _slab_cases(searches, f"mesh {tag} rank {rank}"),
     }
-    out["train"]["searches"] = _slab_cases(searches, f"mesh rank {rank}")
-    if rank == 0:
-        out["train"]["step_cases"] = _step_cases(
-            step_calls, search_grid(xyz)[2])
+    if check_scatters:
+        out["step_cases"] = _step_cases(
+            step_calls, search_grid(xyz)[2],
+            sorted_scatters(trainer.cfg, mesh.shape["point"],
+                            mesh.coords["point"]))
         del step_calls
     del trainer, state, built, searches
     torch.cuda.empty_cache()
-    log(f"[mesh] rank {rank}: (a) done")
+    return out
 
-    # (c) knn_point_sharded over 4 x-slabs
+
+def _mesh_rank(rank: int, world: int, path: str) -> dict:
+    """A rank of phase 12 (a), (d) and (c), one of 4 processes sharing the
+    card over gloo. (a): the Train config on the dp2 x sp2 mesh, this
+    rank's cloud of the batch, ``MESH_STEPS`` steps (``_mesh_train``;
+    rank 0 checks its scatters). (d): the first cloud alone on the sp4
+    mesh, ``MESH_SP4_STEPS`` steps, every rank checking its scatters.
+    (c): ``knn_point_sharded`` of this rank's x-slab of the 365,000-point
+    cloud on the sp4 mesh."""
+    import torch.distributed as dist
+
+    from pointunet_tpu_torch.core.config import MeshConfig
+    from pointunet_tpu_torch.ops import knn_cuda, knn_sharded
+    from pointunet_tpu_torch.ops.pyramid_sharded import slab_sizes
+    from pointunet_tpu_torch.parallel.mesh import make_mesh
+
+    _full_f32()
+    data = torch.load(path, weights_only=False)
+    out = {"backend": dist.get_backend()}
+    mesh = make_mesh(MeshConfig(data=2, point=2))
+    out["train"] = _mesh_train(rank, mesh, data, slice(0, 2), MESH_STEPS,
+                               rank == 0, "(a)")
+    log(f"[mesh] rank {rank}: (a) done")
     mesh = make_mesh(MeshConfig(data=1, point=4))
+    out["sp4"] = _mesh_train(rank, mesh, data, slice(0, 1), MESH_SP4_STEPS,
+                             True, "(d)")
+    log(f"[mesh] rank {rank}: (d) done")
+
+    # (c) knn_point_sharded over 4 x-slabs, on the sp4 mesh of (d)
     pts, _ = knn_sharded.sort_by_x(data["cloud"].to(mesh.device))
     sizes = slab_sizes(pts.shape[0], world)
     lo = sum(sizes[:rank])
@@ -2528,12 +2562,65 @@ def _serve_rank(rank: int, world: int, path: str) -> dict:
     return out
 
 
+def _check_mesh_train(tag: str, train: list, steps: int, parts: int,
+                      one_card: float) -> float:
+    """Phase 12's bars on the ranks' ``_mesh_train`` results: per rank 6
+    KNN launches and ``sorted_scatters`` scatter launches a step, the
+    first pyramid bit-equal to ``build_pyramid``, 6 searches; across
+    ranks equal losses and parameter digests after every step; the first
+    loss within ``MESH_LOSS_BAR`` relative of ``one_card``. Returns that
+    relative difference."""
+    from pointunet_tpu_torch.core.config import brats_pointseg_config
+
+    cfg = brats_pointseg_config()
+    for i, t in enumerate(train):
+        warm = t["split_ms"][1:]
+        log(f"[mesh] {tag} rank {i}: losses {t['losses']}, step ms "
+            + ", ".join(f"{sum(s.values()):.3f}" for s in t["split_ms"])
+            + f" (split of steps 1-{steps - 1}: " + ", ".join(
+                f"{k} {sum(s[k] for s in warm) / len(warm):.3f}"
+                for k in warm[0])
+            + f"), peak {t['peak_gb']:.3f} GB, launches {t['launches']}, "
+            f"pyramid bit-equal to build_pyramid {t['pyramid_equal']}")
+        want = (LAUNCHES_PER_VOLUME * steps,
+                sorted_scatters(cfg, parts, i % parts) * steps)
+        got = (t["launches"]["knn_cell_window"],
+               t["launches"]["scatter_sorted"])
+        if (got != want or t["launches"]["conv3d_3x3"]
+                or t["launches"]["windowed_scatter"]
+                or not t["pyramid_equal"]):
+            raise AssertionError(
+                f"mesh {tag} rank {i}: launches {t['launches']} (want KNN, "
+                f"scatter {want}), pyramid equal {t['pyramid_equal']}")
+        log(f"[mesh] {tag} rank {i}'s searches of its first step, rows "
+            f"differing from the plain version and kernel ms: " + "; ".join(
+                f"{s['search']} {s['rows_differing']} {s['ms']:.4f}"
+                for s in t["searches"]))
+        if len(t["searches"]) != LAUNCHES_PER_VOLUME:
+            raise AssertionError(f"mesh {tag} rank {i}: "
+                                 f"{len(t['searches'])} searches a pyramid")
+    rel = abs(train[0]["losses"][0] - one_card) / abs(one_card)
+    same_params = all(t["digests"] == train[0]["digests"] for t in train)
+    same_loss = all(t["losses"] == train[0]["losses"] for t in train)
+    log(f"[mesh] {tag} first-step loss {train[0]['losses'][0]:.6f} against "
+        f"the one-card step's {one_card:.6f}: relative {rel:.3e} (bar "
+        f"{MESH_LOSS_BAR}, bf16); parameters bit-equal across ranks after "
+        f"every step {same_params}; losses equal across ranks {same_loss}")
+    if not (rel <= MESH_LOSS_BAR and same_params and same_loss
+            and np.all(np.isfinite(train[0]["losses"]))):
+        raise AssertionError(f"mesh training {tag}: loss {rel}, params "
+                             f"{same_params}, losses equal {same_loss}")
+    return rel
+
+
 def phase_mesh(dev) -> dict:
     """Phase 12: the multi-device layer with several ranks sharing this
     one card over gloo (NCCL takes one rank a card); not a scaling
-    measurement. (a) training on the dp2 x sp2 mesh against the one-card
-    step of the same batch, (b) the data-parallel fused batch against the
-    one-card loop, (c) ``knn_point_sharded`` against exact search."""
+    measurement. (a) activation-sharded training on the dp2 x sp2 mesh
+    against the one-card step of the same batch, (d) on the sp4 mesh
+    against the one-card batch-1 step (loss and peak memory), (b) the
+    data-parallel fused batch against the one-card loop, (c)
+    ``knn_point_sharded`` against exact search."""
     from pointunet_tpu_torch.cli.profile_train import synthetic_cloud
     from pointunet_tpu_torch.core.config import brats_pointseg_config
     from pointunet_tpu_torch.ops.knn_sharded import sort_by_x
@@ -2555,6 +2642,19 @@ def phase_mesh(dev) -> dict:
         _, m = trainer.train_step(state, xyz, feats, labels)
         one_card = float(m["loss"])
         one_counts = read_launches()
+        del trainer, state, m
+        torch.cuda.empty_cache()
+        # (d)'s yardstick: the one-card step of the first cloud alone; its
+        # peak counts what the trainer and the step allocate
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = PointSegTrainer(brats_pointseg_config(), device="cuda")
+        state = trainer.init_state()
+        _, m = trainer.train_step(state, xyz[:1], feats[:1], labels[:1])
+        one_card_b1 = float(m["loss"])
+        torch.cuda.synchronize()
+        one_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
         with torch.no_grad():
             pyramids = [_to_cpu(build_pyramid_batch(xyz[b:b + 1], K, RATIOS))
                         for b in range(len(MESH_SEEDS))]
@@ -2566,10 +2666,12 @@ def phase_mesh(dev) -> dict:
         del trainer, state, m, pyramids, xyz, feats, labels
         torch.cuda.empty_cache()
         log(f"[mesh] one-card step of the batch of {len(MESH_SEEDS)}: loss "
-            f"{one_card:.6f}, launches {one_counts}")
+            f"{one_card:.6f}, launches {one_counts}; of the first cloud: "
+            f"loss {one_card_b1:.6f}, peak {one_peak:.3f} GB above the "
+            f"{base / 1e9:.3f} GB held before it")
         t0 = time.perf_counter()
         ranks = spawn(_mesh_rank, 4, path, timeout=MESH_RANK_TIMEOUT_S)
-        log(f"[mesh] 4 ranks ran (a) and (c) in "
+        log(f"[mesh] 4 ranks ran (a), (d) and (c) in "
             f"{time.perf_counter() - t0:.1f} s")
 
         # (b): 2 seeded volumes, the one-card loop on both routes
@@ -2596,46 +2698,25 @@ def phase_mesh(dev) -> dict:
         servers = spawn(_serve_rank, 2, vpath, timeout=MESH_RANK_TIMEOUT_S)
         log(f"[mesh] 2 ranks ran (b) in {time.perf_counter() - t0:.1f} s")
 
-    # (a)
     backends = {r["backend"] for r in ranks + servers}
     log(f"[mesh] backend {sorted(backends)}: ranks share one card, so this "
         f"is no scaling measurement")
+    # (a)
     train = [r["train"] for r in ranks]
-    per_rank = (LAUNCHES_PER_VOLUME * MESH_STEPS, SCATTERS_PER_STEP * MESH_STEPS)
-    for i, t in enumerate(train):
-        warm = t["split_ms"][1:]
-        log(f"[mesh] (a) rank {i}: losses {t['losses']}, step ms "
-            + ", ".join(f"{sum(s.values()):.3f}" for s in t["split_ms"])
-            + " (split of steps 1-2: " + ", ".join(
-                f"{k} {sum(s[k] for s in warm) / len(warm):.3f}"
-                for k in warm[0])
-            + f"), peak {t['peak_gb']:.3f} GB, launches {t['launches']}, "
-            f"pyramid bit-equal to build_pyramid {t['pyramid_equal']}")
-        got = (t["launches"]["knn_cell_window"],
-               t["launches"]["scatter_sorted"])
-        if (got != per_rank or t["launches"]["conv3d_3x3"]
-                or t["launches"]["windowed_scatter"]
-                or not t["pyramid_equal"]):
-            raise AssertionError(f"mesh rank {i}: launches {t['launches']}, "
-                                 f"pyramid equal {t['pyramid_equal']}")
-    rel = abs(train[0]["losses"][0] - one_card) / abs(one_card)
-    same_params = all(t["digests"] == train[0]["digests"] for t in train)
-    same_loss = all(t["losses"] == train[0]["losses"] for t in train)
-    log(f"[mesh] (a) first-step loss {train[0]['losses'][0]:.6f} against the "
-        f"one-card step's {one_card:.6f}: relative {rel:.3e} (bar "
-        f"{MESH_LOSS_BAR}, bf16); parameters bit-equal across ranks after "
-        f"every step {same_params}; losses equal across ranks {same_loss}")
-    for i, t in enumerate(train):
-        log(f"[mesh] (a) rank {i}'s searches of its first step, rows "
-            f"differing from the plain version and kernel ms: " + "; ".join(
-                f"{s['search']} {s['rows_differing']} {s['ms']:.4f}"
-                for s in t["searches"]))
-        if len(t["searches"]) != LAUNCHES_PER_VOLUME:
-            raise AssertionError(f"mesh rank {i}: {len(t['searches'])} "
-                                 f"searches in a pyramid")
-    if not (rel <= MESH_LOSS_BAR and same_params and same_loss
-            and np.all(np.isfinite(train[0]["losses"]))):
-        raise AssertionError(f"mesh training: loss {rel}, params {same_params}")
+    rel = _check_mesh_train("(a)", train, MESH_STEPS, 2, one_card)
+    # (d)
+    sp4 = [r["sp4"] for r in ranks]
+    sp4_rel = _check_mesh_train("(d)", sp4, MESH_SP4_STEPS, 4, one_card_b1)
+    for i, t in enumerate(sp4):
+        split = t["split_ms"][-1]
+        log(f"[mesh] (d) rank {i}: peak {t['peak_gb']:.3f} GB against the "
+            f"one-card batch-1 step's {one_peak:.3f} GB: "
+            f"{t['peak_gb'] / one_peak:.4f} (bar {MESH_SP4_PEAK}); last step "
+            f"forward {split['forward']:.3f} ms, backward "
+            f"{split['backward']:.3f} ms")
+        if not t["peak_gb"] <= MESH_SP4_PEAK * one_peak:
+            raise AssertionError(f"mesh (d) rank {i}: peak {t['peak_gb']} GB, "
+                                 f"one card {one_peak} GB")
 
     # (b)
     serve = {}
@@ -2694,6 +2775,16 @@ def phase_mesh(dev) -> dict:
         "knn_launches": knn[0]["launches"],
         "knn_ms": [k["ms"] for k in knn],
         "knn_kernel_ms": [k["kernel_ms"] for k in knn],
+        "sp4_launches": sp4[0]["launches"],
+        "sp4": {
+            "loss_rel": sp4_rel, "one_card_loss": one_card_b1,
+            "one_card_peak_gb": one_peak, "losses": sp4[0]["losses"],
+            "peak_gb": [t["peak_gb"] for t in sp4],
+            "split_ms": [t["split_ms"] for t in sp4],
+            "launches": [t["launches"] for t in sp4],
+            "searches": [t["searches"] for t in sp4],
+            "step_cases": [t["step_cases"] for t in sp4],
+        },
     }
 
 
@@ -2775,6 +2866,7 @@ def main() -> int:
         "train_resumed": bridge.pop("train_resumed"),
         # phase 12, launches of one rank (all ranks launch alike)
         "mesh_train_per_rank": mesh.pop("train_launches"),
+        "mesh_sp4_train_per_rank": mesh.pop("sp4_launches"),
         "mesh_serve_per_rank": mesh["serve"]["cudnn"]["launches"],
         "mesh_serve_pallas_per_rank": mesh["serve"]["pallas"]["launches"],
         "mesh_knn_point_sharded_per_rank": mesh.pop("knn_launches"),

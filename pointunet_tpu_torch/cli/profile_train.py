@@ -68,7 +68,10 @@ def timed_step(trainer: PointSegTrainer, state: TrainState, xyz, feats,
                labels):
     """One ``train_step`` on device tensors, split by CUDA events into
     the pyramid, the forward and loss, the backward and the optimizer:
-    (metrics, {stage: ms})."""
+    (metrics, {stage: ms}). The metrics hold the global batch's loss
+    (summed over a mesh), the accuracy and ``peak_gb``: this process's
+    (under a mesh, this rank's) peak device memory since the caller last
+    reset it (``torch.cuda.reset_peak_memory_stats``)."""
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(SPLIT) + 1)]
     ev[0].record()
     pyramid = trainer.pyramid_fn(xyz)
@@ -81,7 +84,8 @@ def timed_step(trainer: PointSegTrainer, state: TrainState, xyz, feats,
     ev[4].record()
     torch.cuda.synchronize()
     split = {name: ev[i].elapsed_time(ev[i + 1]) for i, name in enumerate(SPLIT)}
-    return {"loss": trainer.data_sum(loss), "acc": acc.detach()}, split
+    return {"loss": trainer.mesh_sum(loss), "acc": acc.detach(),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}, split
 
 
 def _device_ms(entry) -> float:

@@ -56,12 +56,13 @@ class BatchNorm(nn.Module):
     opposite of ``nn.BatchNorm3d``'s, whose running variance is also the
     unbiased one).
 
-    With a process ``group`` (the data axis of a mesh: ranks that hold
-    different rows of one batch), the train-mode statistics are those of
-    the global batch, as GSPMD gives the reference: each rank's f32 sums
-    of x and x^2 and its count go through one autograd-aware sum over
-    the group (``parallel.collectives.all_reduce_sum``), so every rank
-    normalises by, and keeps, the same statistics."""
+    With a process ``group`` (the ranks that hold the other rows of one
+    batch: a mesh's data group, or the whole mesh when its point axis
+    splits each cloud's rows too), the train-mode statistics are those
+    of the global batch, as GSPMD gives the reference: each rank's f32
+    sums of x and x^2 and its count go through one autograd-aware sum
+    over the group (``parallel.collectives.all_reduce_sum``), so every
+    rank normalises by, and keeps, the same statistics."""
 
     def __init__(self, features: int, eps: float, momentum: float,
                  axis: int = -1, group=None):

@@ -17,6 +17,19 @@ search grid, which is computed only then. The xyz gathers need no
 gradient and the up-sample's gradient is ``index_add_``, as in the
 reference.
 
+With a ``point_group`` (a mesh's point axis), rank p computes only slab
+p of every level's cell-sorted rows (``ops/pyramid_sharded.py:
+slab_sizes``, the slabs the sharded pyramid searches): its features in,
+its logits out. The pyramid and every level's xyz stay whole on every
+rank. Each gather reads the whole source table, made whole by a
+differentiable all-gather over the point group
+(``parallel.collectives.all_gather_rows_grad``) whose backward sums the
+table's cotangent over the group: the two LFA gathers (queries: the
+slab's rows), the pool gather (queries: the slab of the next level) and
+the up-sample (queries: the slab of the level below). The sorted
+scatter's plan is built from the queries' own cell prefix sums, so it
+runs on a slab of queries as on a whole level.
+
 dtype policy: ``use_bfloat16`` None means auto: bf16 when the features are
 on CUDA, f32 on the CPU. In bf16 the layers compute in bf16 while xyz,
 the relative-position encoding and the head's last Linear stay f32. The
@@ -26,7 +39,7 @@ not ported: the f32 xyz rows are gathered directly.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -37,7 +50,9 @@ from ..core.config import PointSegConfig
 from ..ops.gather import encode_neighbor_xyz, gather_neighbour
 from ..ops.knn_window import _grid_resolution
 from ..ops.pyramid import Pyramid
+from ..ops.pyramid_sharded import slab_sizes
 from ..ops.scatter_sorted import sorted_gather
+from ..parallel.collectives import all_gather_rows_grad
 from .naming import FlaxNamed
 from .norms import BatchNorm
 
@@ -66,6 +81,17 @@ def search_grid(xyz0: torch.Tensor):
     lo = xyz0.amin(dim=1)
     span = torch.clamp(xyz0.amax(dim=1) - lo, min=1e-6)
     return lo, span, _grid_resolution(xyz0.shape[1], 1.8)
+
+
+class Slab(NamedTuple):
+    """This rank's part of one level: its ``rows`` (a slice of the level's
+    sorted rows) and ``whole``, which makes a (B, rows, C) activation the
+    level's whole (B, N, C) table."""
+    rows: slice
+    whole: Callable[[torch.Tensor], torch.Tensor]
+
+
+WHOLE = Slab(slice(None), lambda f: f)     # one process: every row
 
 
 def _linear(layer: nn.Linear, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
@@ -117,14 +143,18 @@ class LocalFeatureAggregation(FlaxNamed):
         self.child("SharedMLP", SharedMLP(h, h, m), "mlp2")
         self.child("AttPooling", AttPooling(2 * h, d_out, m), "pool2")
 
-    def forward(self, xyz, feature, neigh_idx, grid, dt):
-        # xyz (B, N, 3) f32; feature (B, N, d_out // 2); neigh_idx (B, N, K)
-        neigh_xyz = _gather(xyz, neigh_idx)                 # (B, N, K, 3)
-        f_neigh = _sorted_gather(feature, neigh_idx, xyz, xyz, grid)
-        f_xyz = self.mlp1(encode_neighbor_xyz(xyz, neigh_xyz), dt)
+    def forward(self, xyz, feature, neigh_idx, grid, dt, slab=WHOLE):
+        # xyz (B, N, 3) f32, the whole level; feature (B, M, d_out // 2)
+        # and neigh_idx (B, M, K): the M rows of ``slab``
+        q_xyz = xyz[:, slab.rows]
+        neigh_xyz = _gather(xyz, neigh_idx)                 # (B, M, K, 3)
+        f_neigh = _sorted_gather(slab.whole(feature), neigh_idx, xyz, q_xyz,
+                                 grid)
+        f_xyz = self.mlp1(encode_neighbor_xyz(q_xyz, neigh_xyz), dt)
         f_agg = self.pool1(torch.cat([f_neigh, f_xyz], dim=-1), dt)
         f_xyz = self.mlp2(f_xyz, dt)
-        f_neigh = _sorted_gather(f_agg, neigh_idx, xyz, xyz, grid)
+        f_neigh = _sorted_gather(slab.whole(f_agg), neigh_idx, xyz, q_xyz,
+                                 grid)
         return self.pool2(torch.cat([f_neigh, f_xyz], dim=-1), dt)
 
 
@@ -148,9 +178,9 @@ class DilatedResBlock(FlaxNamed):
             "shortcut",
         )
 
-    def forward(self, xyz, feature, neigh_idx, grid, dt):
+    def forward(self, xyz, feature, neigh_idx, grid, dt, slab=WHOLE):
         f_pc = self.mlp1(feature, dt)
-        f_pc = self.lfa(xyz, f_pc, neigh_idx, grid, dt)
+        f_pc = self.lfa(xyz, f_pc, neigh_idx, grid, dt, slab)
         f_pc = self.mlp2(f_pc, dt)
         return F.leaky_relu(f_pc + self.shortcut(feature, dt), 0.2)
 
@@ -172,17 +202,25 @@ def _interp(feature: torch.Tensor, interp_idx: torch.Tensor) -> torch.Tensor:
 class RandLANet(FlaxNamed):
     """Encoder-decoder over the decimation pyramid.
 
-    ``data_group``: the process group of the ranks that hold the other
-    rows of the batch (a mesh's data axis). Every ``BatchNorm`` then
-    takes the statistics of the global batch, and the dropout mask is
-    drawn for the global batch from the shared generator, of which this
-    rank keeps its rows, so that a data-parallel step computes what one
-    process computes on the whole batch."""
+    On a mesh: ``data_group``, the ranks that hold the other clouds of
+    the batch (the data axis); ``point_group``, the ranks that hold the
+    same clouds and split every level's rows into slabs (the point axis;
+    see the module docstring); ``mesh_group``, the ranks of both, which
+    hold between them the rows of the global batch. Every ``BatchNorm``
+    takes the statistics of the global batch over ``mesh_group``, and the
+    dropout mask is drawn for the global batch's whole level-0 rows from
+    the shared generator, of which this rank keeps its clouds and its
+    slab, so that a mesh step computes what one process computes on the
+    whole batch."""
 
-    def __init__(self, config: PointSegConfig, data_group=None):
+    def __init__(self, config: PointSegConfig, data_group=None,
+                 point_group=None, mesh_group=None):
         super().__init__()
+        if mesh_group is None and (data_group, point_group) != (None, None):
+            raise ValueError("RandLANet: a mesh axis needs the mesh_group")
         cfg = self.config = config
         self.data_group = data_group
+        self.point_group = point_group
         m = cfg.bn_momentum
         self.child("Dense", nn.Linear(3 + cfg.num_features, 8), "fc0")
         self.child("BatchNorm", BatchNorm(8, 1e-6, m), "bn0")
@@ -209,7 +247,7 @@ class RandLANet(FlaxNamed):
         self.child("Dense", nn.Linear(32, cfg.num_classes), "head")
         for m in self.modules():
             if isinstance(m, BatchNorm):
-                m.group = data_group
+                m.group = mesh_group
 
     def compute_dtype(self, device: torch.device) -> torch.dtype:
         bf16 = self.config.use_bfloat16
@@ -217,14 +255,37 @@ class RandLANet(FlaxNamed):
             bf16 = device.type == "cuda"
         return torch.bfloat16 if bf16 else torch.float32
 
+    def slab(self, n: int) -> Slab:
+        """This rank's slab of a level of ``n`` rows (``WHOLE`` without a
+        point group)."""
+        group = self.point_group
+        if group is None:
+            return WHOLE
+        sizes = slab_sizes(n, dist.get_world_size(group))
+        part = dist.get_rank(group)
+        lo = sum(sizes[:part])
+
+        def whole(f):
+            return all_gather_rows_grad(
+                f.transpose(0, 1), sizes, group).transpose(0, 1)
+
+        return Slab(slice(lo, lo + sizes[part]), whole)
+
     def forward(
         self,
-        features: torch.Tensor,   # (B, N, 3 + num_features) = cat(xyz, mods)
-        pyramid: Pyramid,         # batched (leading B on every leaf)
+        features: torch.Tensor,   # (B, M, 3 + num_features) = cat(xyz, mods):
+                                  #   level 0's rows, this rank's slab of them
+        pyramid: Pyramid,         # batched (leading B on every leaf), whole
         generator: Optional[torch.Generator] = None,  # dropout, train mode
     ) -> torch.Tensor:
         cfg = self.config
         dt = self.compute_dtype(features.device)
+        slabs = [self.slab(x.shape[1]) for x in pyramid.xyz]
+        rows = range(pyramid.xyz[0].shape[1])[slabs[0].rows]
+        if features.shape[1] != len(rows):
+            raise ValueError(
+                f"RandLANet: features hold {features.shape[1]} rows, this "
+                f"rank's slab of level 0 has {len(rows)}")
         # the sorted-scatter backward needs the search grid; serving
         # (autograd off) skips it
         search = search_grid(pyramid.xyz[0]) if torch.is_grad_enabled() else None
@@ -233,9 +294,12 @@ class RandLANet(FlaxNamed):
         skips = []
         for i, block in enumerate(self.encoder):
             g = None if search is None else (*search, i)
-            f_enc = block(pyramid.xyz[i], feature, pyramid.neigh_idx[i], g, dt)
+            here, nxt = slabs[i], slabs[i + 1].rows
+            f_enc = block(pyramid.xyz[i], feature,
+                          pyramid.neigh_idx[i][:, here.rows], g, dt, here)
             feature = _max_pool(
-                f_enc, pyramid.sub_idx[i], pyramid.xyz[i], pyramid.xyz[i + 1], g
+                here.whole(f_enc), pyramid.sub_idx[i][:, nxt],
+                pyramid.xyz[i], pyramid.xyz[i + 1][:, nxt], g
             )
             if i == 0:
                 skips.append(f_enc)
@@ -243,28 +307,34 @@ class RandLANet(FlaxNamed):
 
         feature = self.bottleneck(feature, dt)
         for j, mlp in enumerate(self.decoder):
-            f_interp = _interp(feature, pyramid.interp_idx[-j - 1])
+            level = len(self.decoder) - 1 - j
+            f_interp = _interp(slabs[level + 1].whole(feature),
+                               pyramid.interp_idx[level][:, slabs[level].rows])
             feature = mlp(torch.cat([skips[-j - 2], f_interp], dim=-1), dt)
 
         x = self.fc2(self.fc1(feature, dt), dt)
         p = cfg.dropout_rate
         if self.training and p > 0:
-            keep = self._dropout_keep(x.shape, x.device, p, generator)
+            keep = self._dropout_keep(
+                x.shape, x.device, p, generator, pyramid.xyz[0].shape[1],
+                slabs[0].rows)
             x = torch.where(keep, x / (1.0 - p), x.new_zeros(()))
         # the last Linear stays f32
         return F.linear(x.float(), self.head.weight, self.head.bias)
 
-    def _dropout_keep(self, shape, device, p: float, generator):
-        """Keep-mask of this rank's (B, N, C) rows: drawn for the global
-        batch (data group size x B rows) and sliced at this rank's."""
+    def _dropout_keep(self, shape, device, p: float, generator, n0: int,
+                      rows: slice = WHOLE.rows):
+        """Keep-mask of this rank's (B, M, C) rows: drawn for the global
+        batch (data group size x B clouds of all ``n0`` level-0 rows) and
+        sliced at this rank's clouds and its slab ``rows``."""
         size, rank = 1, 0
         if self.data_group is not None:
             size = dist.get_world_size(self.data_group)
             rank = dist.get_rank(self.data_group)
-        full = (shape[0] * size,) + tuple(shape[1:])
+        full = (shape[0] * size, n0) + tuple(shape[2:])
         keep = torch.empty(full, device=device).bernoulli_(
             1.0 - p, generator=generator)
-        return keep[rank * shape[0]:(rank + 1) * shape[0]].bool()
+        return keep[rank * shape[0]:(rank + 1) * shape[0], rows].bool()
 
 
 def _he_truncated_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
@@ -286,13 +356,14 @@ def _glorot_uniform_(w: torch.Tensor, generator: torch.Generator) -> None:
 
 
 def init_randlanet(
-    config: PointSegConfig, generator: torch.Generator, data_group=None
+    config: PointSegConfig, generator: torch.Generator, data_group=None,
+    point_group=None, mesh_group=None,
 ) -> RandLANet:
     """A ``RandLANet`` with the reference's initialisation drawn from
     ``generator`` (CPU): He truncated-normal over fan_out for the
     SharedMLP Linears and the head, glorot-uniform for fc0 and the
     attention scores, zero biases, identity batch norms. In eval mode."""
-    model = RandLANet(config, data_group)
+    model = RandLANet(config, data_group, point_group, mesh_group)
     glorot = {id(model.fc0)} | {
         id(m.score) for m in model.modules() if isinstance(m, AttPooling)
     }

@@ -9,6 +9,12 @@ never move their compute off it.
 * ``all_gather_rows``: the row blocks of every rank of a group, which may
   differ in length, concatenated in rank order on every rank (each block
   is padded to the longest, gathered and sliced back).
+* ``all_gather_rows_grad``: the same gather, differentiable: a rank's
+  slab goes in and the whole table comes out, and the backward sums the
+  whole table's cotangent over the group in f32 at least (one
+  ``all_reduce``: gloo has no ``reduce_scatter``) and keeps this rank's
+  slab. The activation-sharded point net makes each gather's source
+  table whole with it.
 * ``all_reduce_sum``: a sum over a group that autograd differentiates:
   its backward sums the incoming gradients over the group, because every
   rank's loss depends on the sum
@@ -55,6 +61,32 @@ def all_gather_rows(
     out = [torch.empty_like(block) for _ in sizes]
     dist.all_gather(out, block, group=group)
     return torch.cat([o[:n] for o, n in zip(out, sizes)])
+
+
+class _AllGatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, sizes, group):
+        ctx.sizes, ctx.group = sizes, group
+        return all_gather_rows(t, sizes, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # summed in f32 at least: a bf16 table's cotangent too
+        acc = torch.promote_types(grad.dtype, torch.float32)
+        whole = all_reduce_(grad.to(acc, copy=True).contiguous(), ctx.group)
+        rank = dist.get_rank(ctx.group)
+        lo = sum(ctx.sizes[:rank])
+        return whole[lo:lo + ctx.sizes[rank]].to(grad.dtype), None, None
+
+
+def all_gather_rows_grad(
+    t: torch.Tensor, sizes: Sequence[int], group=None
+) -> torch.Tensor:
+    """``all_gather_rows``, differentiable: every rank's loss may read any
+    row of the whole table, so the backward sums the table's cotangent
+    over ``group`` and returns this rank's rows of the sum (the same bytes
+    on every rank)."""
+    return _AllGatherRows.apply(t, tuple(sizes), group)
 
 
 def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:

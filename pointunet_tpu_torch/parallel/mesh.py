@@ -6,11 +6,16 @@ arrays on it. The port runs one process a rank, each with an explicit
 device, and gives each rank one process group along each axis:
 
 * ``data``: ranks that hold different rows of the batch (volumes or
-  clouds); gradients, batch-norm statistics and losses are summed over
-  it;
-* ``point``: ranks that hold the same rows and share the large pyramid
-  searches of each cloud (``ops/pyramid_sharded.py``); they compute the
-  same network and nothing is reduced over it.
+  clouds);
+* ``point``: ranks that hold the same clouds, build the same pyramid
+  (sharing its large searches, ``ops/pyramid_sharded.py``) and split
+  the point net's activations: rank p computes slab p of every level's
+  rows (``RandLANet(point_group=)``), as the reference's ``_pshard``
+  anchors them on this axis.
+
+The rows of a global batch are then spread over the whole mesh: the
+batch norms, the loss's sums and the gradient sum run over ``group``,
+the group of every rank (the default group: the mesh covers the world).
 
 Rank ``r`` sits at ``(r // point, r % point)``, as the reference's
 ``devices.reshape(data, point)``. ``init_distributed`` joins the process
@@ -91,11 +96,13 @@ def init_distributed(
 class Mesh:
     """This rank's view of the (data, point) mesh: the mesh ``shape`` and
     this rank's ``coords`` by axis name, its ``groups`` (the ranks that
-    share its other coordinate, one group an axis) and its ``device``."""
+    share its other coordinate, one group an axis), the ``group`` of
+    every rank of the mesh and its ``device``."""
 
     shape: Dict[str, int]
     coords: Dict[str, int]
     groups: Dict[str, object]
+    group: object
     device: torch.device
 
 
@@ -126,6 +133,7 @@ def make_mesh(cfg: Optional[MeshConfig] = None, device: str = "cuda") -> Mesh:
         shape={DATA_AXIS: cfg.data, POINT_AXIS: cfg.point},
         coords={DATA_AXIS: d, POINT_AXIS: p},
         groups={DATA_AXIS: data_groups[p], POINT_AXIS: point_groups[d]},
+        group=dist.group.WORLD,
         device=(torch.device("cuda", torch.cuda.current_device())
                 if device == "cuda" else torch.device(device)),
     )
@@ -133,7 +141,9 @@ def make_mesh(cfg: Optional[MeshConfig] = None, device: str = "cuda") -> Mesh:
 
 def batch_sharding(mesh: Mesh, batch: int) -> slice:
     """This rank's rows of a global batch of ``batch``: the data axis
-    splits it into equal contiguous blocks; point ranks share theirs."""
+    splits it into equal contiguous blocks; point ranks receive theirs
+    whole (the pyramid needs the whole cloud) and the point net takes
+    each rank's slab of the level-0 rows after ``take_level0``."""
     dp = mesh.shape[DATA_AXIS]
     if batch % dp != 0:
         raise ValueError(f"batch {batch} not divisible by data axis {dp}")

@@ -15,20 +15,23 @@ updates it and returns it; there is no buffer donation.
 
 Under a mesh (``parallel/mesh.py``; the reference's ``mesh=``, which
 GSPMD shards), one process runs each rank and ``train_step`` takes the
-rank's rows of the batch (``shard_batch``):
+rank's clouds of the batch (``shard_batch``):
 
-* data axis: the batch norms take the global batch's statistics and the
-  dropout mask is the global batch's (``RandLANet(data_group=)``); each
-  rank divides its weighted CE sum by the global valid count, backpropagates
-  that share, and the parameter gradients are summed (not averaged) over
-  the data group before the Adam update, so the parameters stay
-  bit-equal on every rank; the reported loss and accuracy are global;
-* point axis: the ranks of a point group hold one replica of the network
-  and the same rows; they share the large levels' pyramid searches
-  (``build_pyramid_sharded`` from ``point_shard_min`` rows) and reduce
-  nothing else; each takes its point group's first rank's gradient, so
-  that the replicas stay bit-equal on the card too, where the backward's
-  atomic sums (``index_add_``) may round differently on two replicas.
+* data axis: each rank holds other clouds of the global batch;
+* point axis: the ranks of a point group hold the same clouds, share the
+  large levels' pyramid searches (``build_pyramid_sharded`` from
+  ``point_shard_min`` rows) and split the point net's activations: rank
+  p runs slab p of every level's rows, forward and backward
+  (``RandLANet(point_group=)``), and takes slab p of the level-0
+  features and labels.
+
+The rows of the global batch are thus spread over the whole mesh: the
+batch norms take the global batch's statistics over the mesh group and
+the dropout mask is the global batch's; each rank divides its rows'
+weighted CE sum by the global valid count, backpropagates that share,
+and the parameter gradients are summed (not averaged) over the mesh in
+one all-reduce before the Adam update, so the parameters stay bit-equal
+on every rank; the reported loss and accuracy are global.
 """
 from __future__ import annotations
 
@@ -107,13 +110,16 @@ class PointSegTrainer:
         self.mesh = mesh
         self.point_shard_min = point_shard_min
         self.device = torch.device(device) if mesh is None else mesh.device
-        # the data and point groups when they have other ranks; None on
-        # one process
+        # the data and point groups when they have other ranks, and the
+        # group of the whole mesh when it has several; None on one process
         self.data_group, self.point_group = (
             mesh.groups[axis]
             if mesh is not None and mesh.shape[axis] > 1 else None
             for axis in (DATA_AXIS, POINT_AXIS)
         )
+        self.mesh_group = None if (
+            self.data_group is None and self.point_group is None
+        ) else mesh.group
         self.is_main = mesh is None or (
             mesh.coords[DATA_AXIS] == 0 and mesh.coords[POINT_AXIS] == 0)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -136,7 +142,8 @@ class PointSegTrainer:
 
     def init_state(self, seed: int = 0) -> TrainState:
         model = init_randlanet(
-            self.cfg, torch.Generator().manual_seed(seed), self.data_group)
+            self.cfg, torch.Generator().manual_seed(seed), self.data_group,
+            self.point_group, self.mesh_group)
         model = model.to(self.device)
         opt = torch.optim.Adam(
             model.parameters(), lr=self.lr_at(0), betas=ADAM_BETAS,
@@ -162,12 +169,18 @@ class PointSegTrainer:
             return arrays
         return shard_batch(self.mesh, *arrays)
 
-    def data_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` summed over the data group, outside autograd."""
+    @staticmethod
+    def _sum(t: torch.Tensor, group) -> torch.Tensor:
+        """``t`` summed over ``group`` (None: itself), outside autograd."""
         t = t.detach().clone()
-        if self.data_group is not None:
-            collectives.all_reduce_(t, self.data_group)
+        if group is not None:
+            collectives.all_reduce_(t, group)
         return t
+
+    def mesh_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the mesh (over the rows of the global batch),
+        outside autograd."""
+        return self._sum(t, self.mesh_group)
 
     def _loss_fn(self, state: TrainState, pyramid, feats, labels):
         """(this rank's share of the loss, global accuracy): the weighted
@@ -178,10 +191,10 @@ class PointSegTrainer:
             logits, labels, cfg.class_weights(), cfg.num_classes,
             cfg.ignored_label_inds,
         )
-        loss = total / self.data_sum(count).clamp(min=1)
+        loss = total / self.mesh_sum(count).clamp(min=1)
         hits = (logits.argmax(-1) == labels).sum()
         seen = torch.tensor(labels.numel(), device=hits.device)
-        hits, seen = self.data_sum(torch.stack([hits, seen]))
+        hits, seen = self.mesh_sum(torch.stack([hits, seen]))
         return loss, hits.float() / seen.float()
 
     def _tensor(self, a, dtype=None) -> torch.Tensor:
@@ -190,17 +203,20 @@ class PointSegTrainer:
     def forward_loss(self, state: TrainState, pyramid: Pyramid, feats, labels):
         """The training forward and loss on a built pyramid: (loss, acc).
         ``feats`` (B, N, 3 + F) and ``labels`` (B, N) are row-aligned with
-        the input cloud."""
+        the input cloud; the model takes this rank's slab of their level-0
+        rows (all of them without a point group)."""
         feats, labels = take_level0(pyramid, feats, labels)
+        rows = state.model.slab(pyramid.xyz[0].shape[1]).rows
+        feats, labels = feats[:, rows], labels[:, rows]
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
         return self._loss_fn(state, pyramid, feats, labels)
 
     def apply_update(self, state: TrainState) -> None:
         """One Adam update from the parameters' ``.grad`` (under a mesh,
-        first made the same on every rank: ``_sync_gradients``), at the
-        learning rate of the update count before it."""
-        if self.data_group is not None or self.point_group is not None:
+        first summed over it: ``_sync_gradients``), at the learning rate of
+        the update count before it."""
+        if self.mesh_group is not None:
             self._sync_gradients(state.model)
         for group in state.optimizer.param_groups:
             group["lr"] = self.lr_at(state.step)
@@ -208,22 +224,16 @@ class PointSegTrainer:
         state.step += 1
 
     def _sync_gradients(self, model: torch.nn.Module) -> None:
-        """Every parameter's ``.grad``, flattened into one buffer: taken
-        from the first rank of the point group (the replicas compute the
-        same gradient up to the order of the backward's atomic sums on
-        the card, such as ``index_add_``'s; nothing is summed over the
-        point axis), then summed over the data group."""
+        """Every parameter's ``.grad``, flattened into one buffer and
+        summed over the mesh in one all-reduce: each rank's is the
+        gradient of its rows' share of the loss, so the sum is the global
+        batch's, the same bytes on every rank."""
         params = list(model.parameters())
         flat = torch.cat([
             (p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1)
             for p in params
         ])
-        if self.point_group is not None:
-            size = dist.get_world_size(self.point_group)
-            flat = collectives.all_gather_rows(
-                flat, [flat.numel()] * size, self.point_group)[:flat.numel()]
-        if self.data_group is not None:
-            collectives.all_reduce_(flat, self.data_group)
+        collectives.all_reduce_(flat, self.mesh_group)
         for p, g in zip(params, flat.split([p.numel() for p in params])):
             p.grad = g.view_as(p)
 
@@ -234,7 +244,7 @@ class PointSegTrainer:
         loss, acc = self.forward_loss(state, pyramid, feats, labels)
         loss.backward()
         self.apply_update(state)
-        return state, {"loss": self.data_sum(loss), "acc": acc.detach()}
+        return state, {"loss": self.mesh_sum(loss), "acc": acc.detach()}
 
     def train_step(self, state: TrainState, xyz, feats, labels):
         xyz = self._tensor(xyz, torch.float32)
@@ -246,13 +256,17 @@ class PointSegTrainer:
 
     def eval_step(self, state: TrainState, xyz, feats, labels=None):
         """Softmax probabilities (B, N, C) in the caller's row order (of
-        this rank's rows, under a mesh)."""
+        this rank's clouds, under a mesh: the point group's slabs are
+        gathered)."""
         xyz = self._tensor(xyz, torch.float32)
         pyramid = self.pyramid_fn(xyz)
         feats = take_level0(pyramid, self._tensor(feats, torch.float32))
+        slab = state.model.slab(pyramid.xyz[0].shape[1])
         state.model.eval()
         with torch.no_grad():
-            probs = torch.softmax(state.model(feats, pyramid), dim=-1)
+            probs = torch.softmax(
+                state.model(feats[:, slab.rows], pyramid), dim=-1)
+            probs = slab.whole(probs)
         inv = torch.argsort(pyramid.order.long(), dim=-1)
         return probs.gather(1, inv[..., None].expand_as(probs))
 
@@ -261,7 +275,8 @@ class PointSegTrainer:
     ) -> float:
         """Confusion-matrix mean IoU (%) over a validation iterator of
         global batches; under a mesh each rank scores its rows and the
-        confusion matrix is summed over the data group."""
+        confusion matrix is summed over the data group (the point ranks of
+        a cloud score it whole, each)."""
         nc = self.cfg.num_classes
         conf = np.zeros((nc, nc), np.int64)
         correct = seen = 0
@@ -288,9 +303,9 @@ class PointSegTrainer:
             correct += int((pred == lab).sum())
             seen += lab.size
         if self.data_group is not None:
-            totals = self.data_sum(torch.as_tensor(
+            totals = self._sum(torch.as_tensor(
                 np.append(conf.reshape(-1), [correct, seen]),
-                device=self.device))
+                device=self.device), self.data_group)
             totals = totals.cpu().numpy()
             conf = totals[:-2].reshape(nc, nc)
             correct, seen = int(totals[-2]), int(totals[-1])

@@ -8,7 +8,9 @@ The ranks are spawned processes running tests/torch_dist_workers.py
 (jax-free); each spawn is a module fixture that several tests read.
 
 Bars of the train steps (f32, a 2-level net at 4,096 points, a global
-batch of 4; the point-sharded pyramid from 1,024 rows; 2 steps without
+batch of 4; the point-sharded pyramid from 1,024 rows; on dp2sp2 each
+point rank runs its slab of every level's rows, as
+tests/test_torch_point_sharded.py checks further; 2 steps without
 dropout and 2 with it, whose mask is drawn for the global batch):
 
 * the loss of each of 2 steps within rtol 1e-4 of the single process's
@@ -18,8 +20,9 @@ dropout and 2 with it, whose mask is drawn for the global batch):
   own pyramids (tests/test_torch_pancreas.py; measured 3.4e-5, where 3 of
   the 16,384 level-0 neighbour rows differ in distance ties: the
   reference's brute force ranks by the matmul form of d^2);
-* the first step's gradient, summed over the data group, within 5e-3 x
-  its tensor's max |g| of the single process's (measured: 1.3e-3; merely
+* the first step's gradient, summed over the mesh, within 5e-3 x its
+  tensor's max |g| of the single process's (measured: 1.5e-3 for dp4,
+  1.9e-4 for the activation-sharded dp2sp2; merely
   permuting the batch's rows in one process moves it by 4.5e-4: f32
   sums in another order, amplified by the batch norms). The Linear
   biases that feed a batch norm have a zero gradient analytically: there
@@ -34,7 +37,9 @@ dropout and 2 with it, whose mask is drawn for the global batch):
   max: elementwise rtol 1e-5 cannot hold for any change of summation
   order. Permuting the batch's rows in one process leaves 581 of 25,684
   elements outside it (by up to 3.4e-4, 3.4 lr); the mesh must leave at
-  most 3 times as many (measured 1,146 for dp4, 1,136 for dp2sp2). The
+  most 3 times as many (measured 1,146 for dp4, 1,136 for dp2sp2 with
+  point replicas; with the activation-sharded dp2sp2: 737 for the
+  permuted rows, 908 for dp4, 622 for dp2sp2). The
   gradient bar above is what a wrong reduction would fail (Adam's first
   step is the same for a gradient off by any factor), and so would the
   second step's loss;
@@ -273,13 +278,12 @@ def test_train_state_equal_across_ranks(train_runs, name):
             assert err <= 1e-5 * float(w.abs().max()), (leaf, err)
 
 
-def test_update_takes_the_point_leaders_gradients(train_runs):
-    """On dp2sp2, rank r = 2 d + p holding the gradient r + 1: each point
-    group takes its first rank's (2 d + 1), summed over the data group:
-    1 + 3 = 4 on every rank (on the card the replicas' own gradients can
-    differ in the rounding of atomic sums)."""
+def test_update_sums_the_meshs_gradients(train_runs):
+    """On dp2sp2, rank r holding the gradient r + 1: every rank's update
+    takes the sum over the whole mesh, 1 + 2 + 3 + 4 = 10 (each rank's
+    own is the gradient of its clouds' slab of the loss)."""
     for run in train_runs["ranks"]:
-        assert run["synced_grads"] == [4.0]
+        assert run["synced_grads"] == [10.0]
 
 
 def _outside(got: dict, want: dict) -> int:

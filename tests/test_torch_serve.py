@@ -153,7 +153,8 @@ def test_port_imports_no_jax():
     """Neither the port (its serving, segmenting and training entry
     points, both trainers, its kernels' wrappers, the Pancreas path, the
     offline prep and scoring tools, the host CLIs, the native ops, the
-    checkpoint reader and the multi-device layer) nor chip_smoke.py loads
+    checkpoint reader, the multi-device layer and the activation-sharded
+    point net; then every module of the package) nor chip_smoke.py loads
     JAX, any module of the JAX package (``pointunet_tpu``) or the
     exporter, which is the one file that imports both."""
     code = (
@@ -200,6 +201,13 @@ def test_port_imports_no_jax():
         "import pointunet_tpu_torch.parallel.collectives\n"
         "import pointunet_tpu_torch.ops.pyramid_sharded\n"
         "import pointunet_tpu_torch.ops.knn_sharded\n"
+        "import pointunet_tpu_torch.models.randlanet\n"
+        "import pointunet_tpu_torch.parallel.mesh\n"
+        # every other module of the port, new ones included
+        "import importlib, pkgutil, pointunet_tpu_torch\n"
+        "for m in pkgutil.walk_packages(pointunet_tpu_torch.__path__,\n"
+        "                               'pointunet_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in\n"

@@ -1,5 +1,6 @@
 """Rank functions of the port's multi-device tests
-(tests/test_torch_parallel.py, tests/test_torch_pyramid_sharded.py).
+(tests/test_torch_parallel.py, tests/test_torch_pyramid_sharded.py,
+tests/test_torch_point_sharded.py).
 
 ``parallel.collectives.spawn`` starts each rank in a fresh process that
 imports this module by name, so it imports torch and the port only: no
@@ -8,6 +9,7 @@ group on the CPU and returns what the test compares.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 
 import torch
@@ -192,7 +194,7 @@ def train_rank(rank: int, world: int, cfgs: dict, state_dict: dict, batch,
             res["sharded_pyramids"] = len(sharded)
             out[name] = res
         # the gradient each rank's update takes when the ranks' own
-        # differ: rank r's is r + 1 everywhere
+        # differ: rank r's is r + 1 everywhere (on dp2sp2)
         trainer, state = _trainer(cfgs["no_dropout"], state_dict, mesh,
                                   shard_min)
         for p in state.model.parameters():
@@ -203,6 +205,94 @@ def train_rank(rank: int, world: int, cfgs: dict, state_dict: dict, batch,
         })
     finally:
         pointseg.build_pyramid_sharded = build
+    return out
+
+
+@contextlib.contextmanager
+def low_gate(threshold: int):
+    """Within: levels of more than ``threshold`` rows run the pyramid's
+    cell-window search, and every sorted gather's backward above them
+    takes the sorted scatter's plan (``MIN_ROWS`` 0: valid because the
+    indices come from the windowed search). Yields the list of the ct
+    rows and support rows of each ``scatter_sorted`` call."""
+    from pointunet_tpu_torch.ops import pyramid
+    from pointunet_tpu_torch.ops import scatter_sorted as ss
+
+    calls, scatter = [], ss.scatter_sorted
+    saved = (pyramid.GRID_THRESHOLD, ss.GRID_THRESHOLD, ss.MIN_ROWS)
+
+    def record(ct, idx, s_ids, *args):
+        calls.append((ct.shape[0], s_ids.shape[0]))
+        return scatter(ct, idx, s_ids, *args)
+
+    pyramid.GRID_THRESHOLD = ss.GRID_THRESHOLD = threshold
+    ss.MIN_ROWS = 0
+    ss.scatter_sorted = record
+    try:
+        yield calls
+    finally:
+        pyramid.GRID_THRESHOLD, ss.GRID_THRESHOLD, ss.MIN_ROWS = saved
+        ss.scatter_sorted = scatter
+
+
+def _gather_case(rank: int) -> dict:
+    """``all_gather_rows_grad`` of f64 slabs of 3, 1, 4 and 2 rows, and the
+    gradient of sum(whole * w) with a weight table w of this rank's."""
+    sizes = [3, 1, 4, 2]
+    gen = torch.Generator().manual_seed(rank)
+    t = torch.randn((sizes[rank], 5), generator=gen, dtype=torch.float64)
+    w = torch.randn((sum(sizes), 5), generator=gen, dtype=torch.float64)
+    t.requires_grad_(True)
+    whole = collectives.all_gather_rows_grad(t, sizes)
+    (whole * w).sum().backward()
+    return {"t": t.detach(), "w": w, "whole": whole.detach(),
+            "grad": t.grad, "sizes": sizes}
+
+
+SHARDED_MESHES = ("sp4", "dp2sp2")
+
+
+def point_sharded_rank(rank: int, world: int, cfgs: dict, state_dict: dict,
+                       batch, steps: int, shard_min: int,
+                       low_threshold: int) -> dict:
+    """The activation-sharded point net on the sp4 and dp2sp2 meshes,
+    from ``state_dict``: this rank's batch rows and level-0 slab; the
+    train-mode and eval-mode logits of its clouds, gathered over the point
+    group; ``steps`` train steps (``_steps``) at the default gates and
+    under ``low_gate(low_threshold)`` with the sorted scatter calls made
+    there; the dropout keep-mask of its slab. Also ``_gather_case``."""
+    from pointunet_tpu_torch.ops.pyramid import take_level0
+
+    out = {"gather": _gather_case(rank)}
+    cfg = cfgs["no_dropout"]
+    for name in SHARDED_MESHES:
+        mesh = make_mesh(MESHES[name], device="cpu")
+        rows = batch_sharding(mesh, len(batch[0]))
+        trainer, state = _trainer(cfg, state_dict, mesh, shard_min)
+        xyz, feats, _ = trainer.shard_batch(*batch)
+        pyr = trainer.pyramid_fn(xyz)
+        f0 = take_level0(pyr, feats)
+        model = state.model
+        slab = model.slab(f0.shape[1])
+        with torch.no_grad():
+            logits = {mode: slab.whole(
+                getattr(model, mode)()(f0[:, slab.rows], pyr))
+                for mode in ("train", "eval")}
+        res = {"rows": (rows.start, rows.stop),
+               "slab": (slab.rows.start, slab.rows.stop), "logits": logits}
+        trainer, state = _trainer(cfg, state_dict, mesh, shard_min)
+        res["steps"] = _steps(trainer, state, batch, steps)
+        with low_gate(low_threshold) as calls:
+            trainer, state = _trainer(cfg, state_dict, mesh, shard_min)
+            res["low_steps"] = _steps(trainer, state, batch, steps)
+        res["low_scatters"] = list(calls)
+        trainer, state = _trainer(cfgs["dropout"], state_dict, mesh,
+                                  shard_min)
+        res["keep"] = state.model._dropout_keep(
+            (len(xyz), slab.rows.stop - slab.rows.start, 32), "cpu",
+            cfgs["dropout"].dropout_rate, torch.Generator().manual_seed(7),
+            f0.shape[1], slab.rows)
+        out[name] = res
     return out
 
 
