@@ -156,11 +156,36 @@ fails (non-zero exit, no result line) on any fault. Phases:
    ``knn_point_sharded`` of phase 2's cloud in 4 x-slabs (one KNN launch
    a rank, equal to the plain version): tie-aware recall >= 0.99 against
    exact search, some neighbours in another slab. A failing rank fails
-   the phase.
+   the phase;
+13. routes: the conv routes of ``models/fastconv.py`` and the KNN
+   entries. (a) the Serve contract under each route of ``ROUTES``
+   (``POINTUNET_FASTCONV`` unset, ``fold1``, ``k9``, ``all``, ``pallas``,
+   and ``pallas`` with ``POINTUNET_FUSED_UPSAMPLE=1``): the attention
+   stage (mean of 3 after a warm-up), one request's launches (19 of
+   kernel 3 under ``pallas``, 15 with the fused upsample, 0 otherwise),
+   the max |logit| gap and the label voxels differing from the unset
+   route's, labels in {0, 1, 2, 4}; (b) every conv of one forward that a
+   mode folds (the 6 gate convs and the 1x1x1s) on ``F.conv3d`` and on
+   the fold, at the bf16 ROI and on one f32 window (gate at stride 1),
+   and the 19 3x3x3 convs of the bf16 ROI under ``all``: ms, bound and
+   the gap (bf16 with one slice: one bf16 ulp or 1e-5 x max|F.conv3d|;
+   bf16 3x3x3: 2^-6 x max|F.conv3d|; f32: 2e-5 x max(1, max|F.conv3d|));
+   (c) ``segment`` with ``pallas`` (kernel 3 and the fold) and ``fold1``,
+   its seconds and its labels' agreement with phase 7's runs; (d) the
+   Pancreas attention stage under unset, ``fold1`` and ``pallas``; (e)
+   the f32 saliency train step (remat, batch 2 of (64,160,160)) unset
+   and under ``fold1``: step ms, peak memory, first losses within rtol
+   1e-3; (f) the 4 UpsampleConvs of the bf16 ROI forward fused and as
+   repeat plus ``F.conv3d`` (bar: 2^-6 x max|F.conv3d|); (g) the
+   standalone ``knn_pallas`` on phase 2's cloud with support and queries
+   shuffled apart: one kernel-1 launch, rows equal to the plain
+   version's, phase 2's recall bars, each query's nearest its own point.
+   Each line ends with the card's name and power limit.
 
 Every path is driven with the kernels' launch counts set to 0 just before
 it and read just after. Before the last line it prints the card
-(``nvidia-smi``) and one JSON object describing the four kernels; the
+(``nvidia-smi``) and one JSON object describing the four kernels (phase
+13's results under kernel 3's ``routes`` and kernel 1's ``knn_pallas``); the
 last line is ``{"ok": true, "device": {...}}``. It imports nothing of
 JAX.
 """
@@ -222,6 +247,16 @@ MESH_LOSS_BAR = 5e-3           # its first loss against the one-card step's
 MESH_SP4_STEPS = 2             # phase 12 (d): steps on the sp4 mesh, batch 1
 MESH_SP4_PEAK = 0.5            # (d): a rank's peak over the one-card step's
 MESH_RANK_TIMEOUT_S = 300      # a phase-12 launch whose ranks take longer fails
+# phase 13: the conv routes, (name, POINTUNET_FASTCONV, POINTUNET_FUSED_UPSAMPLE)
+# (None: unset)
+ROUTES = (("unset", None, None), ("fold1", "fold1", None), ("k9", "k9", None),
+          ("all", "all", None), ("pallas", "pallas", None),
+          ("pallas+fused_upsample", "pallas", "1"))
+ROUTE_REPEATS = 3              # attention stages timed a route (after a warm-up)
+ROUTE_STEPS = 3                # timed saliency train steps a route
+CONV_REPEATS = 5               # timed calls of a conv a route
+PANCREAS_SHAPE = (256, 256, 160)
+UPSAMPLE_CONVS = 4             # the saliency net's UpsampleConvs (3x3x3)
 # the card's peaks (NVIDIA H100 SXM data sheet): device memory bytes/s,
 # f32 operations/s outside the tensor cores, bf16 on the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -319,17 +354,21 @@ def bound_by(nbytes: float, ops: float, rate: float = F32_OPS_S) -> str:
 
 
 @contextlib.contextmanager
-def _env(name: str, value: str):
-    """``os.environ[name] = value`` within, restored after."""
+def _env(name: str, value):
+    """``os.environ[name] = value`` within (None: unset), restored after."""
     old = os.environ.get(name)
-    os.environ[name] = value
+
+    def put(v):
+        if v is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = v
+
+    put(value)
     try:
         yield
     finally:
-        if old is None:
-            del os.environ[name]
-        else:
-            os.environ[name] = old
+        put(old)
 
 
 def _kernel_modules() -> dict:
@@ -830,13 +869,9 @@ def _save_gz(vol: np.ndarray, path: str) -> None:
     os.remove(raw)
 
 
-def _write_cases(inbox: str, n_cases: int = N_CASES,
-                 tumour: bool = False) -> None:
-    """``n_cases`` BraTS-layout cases: the bench's ellipsoid brain with
-    normal noise, gzipped at level 1 once and copied (level 9 takes
-    minutes). ``tumour`` adds a ball (radius 24) whose voxels are raised
-    by 3 in every modality and a ``_seg`` volume labelling it (4 inside
-    radius 10, 1 inside 16, 2 to the rim)."""
+def _brats_vols(tumour: bool = False) -> dict:
+    """The volumes of ``_write_cases`` ({modality or "seg": (240, 240,
+    155)}), seeded: the bench's ellipsoid brain with normal noise."""
     from pointunet_tpu_torch.data.loader import BRATS_MODALITIES
 
     rng = np.random.default_rng(1)
@@ -856,6 +891,17 @@ def _write_cases(inbox: str, n_cases: int = N_CASES,
         if tumour:
             vol += 3.0 * (d < 24)
         vols[mod] = vol * brain
+    return vols
+
+
+def _write_cases(inbox: str, n_cases: int = N_CASES,
+                 tumour: bool = False) -> None:
+    """``n_cases`` BraTS-layout cases: the bench's ellipsoid brain with
+    normal noise, gzipped at level 1 once and copied (level 9 takes
+    minutes). ``tumour`` adds a ball (radius 24) whose voxels are raised
+    by 3 in every modality and a ``_seg`` volume labelling it (4 inside
+    radius 10, 1 inside 16, 2 to the rim)."""
+    vols = _brats_vols(tumour)
     first = "BraTS_smoke_000"
     os.makedirs(os.path.join(inbox, first))
     for name, vol in vols.items():
@@ -1114,29 +1160,45 @@ def _conv_case(name: str, x, w, b) -> dict:
             "max_abs_err": max_err, "ops": ops, "bytes": nbytes}
 
 
-def phase_conv(dev, serve_pipe, mods) -> dict:
-    """Kernel 3 on the inputs of the 19 eligible convs of one saliency
-    forward: bf16 at the serve ROI, f32 on one sliding window."""
-    from pointunet_tpu_torch.cli import segment
-
-    # the serve request's ROI window, as its attention stage feeds the net
-    roi = _roi_slices(serve_pipe, mods)
+def _roi_input(pipe, mods) -> torch.Tensor:
+    """The saliency net's input of a served request: the ROI window
+    (1, 4, Z, Y, X) padded to the net's depth-5 stride, as the attention
+    stage feeds it."""
+    roi = _roi_slices(pipe, mods)
     vol = mods[:, roi[0], roi[1], roi[2]].permute(0, 3, 2, 1)[None]
     zp, yp, xp = (-(-n // 16) * 16 for n in vol.shape[2:])
-    vol = torch.nn.functional.pad(
+    return torch.nn.functional.pad(
         vol, (0, xp - vol.shape[4], 0, yp - vol.shape[3], 0,
               zp - vol.shape[2]))
-    f32 = segment.build_pipeline(argparse.Namespace(
+
+
+def _window_input(mods) -> torch.Tensor:
+    """One f32 sliding window of ``segment`` (1, 4, 64, 160, 160), at the
+    middle of the (Z, Y, X) volume."""
+    zc, yc, xc = ((n - w) // 2 for n, w in zip(VOLUME[::-1], WINDOW))
+    return mods.permute(0, 3, 2, 1)[None, :, zc:zc + WINDOW[0],
+                                    yc:yc + WINDOW[1],
+                                    xc:xc + WINDOW[2]].contiguous()
+
+
+def _segment_saliency_model(dev):
+    """``segment``'s saliency net: f32, gate stride 1, weights from seed 0."""
+    from pointunet_tpu_torch.cli import segment
+
+    return segment.build_pipeline(argparse.Namespace(
         dataset="brats", fast=False, sa_stride=None, n_point=N_POINTS,
         saliency_checkpoint=None, pointseg_checkpoint=None,
     )).saliency_model.to(dev).eval()
-    # a window at the middle of the (Z, Y, X) volume
-    zc, yc, xc = ((n - w) // 2 for n, w in zip(VOLUME[::-1], WINDOW))
-    window = mods.permute(0, 3, 2, 1)[None, :, zc:zc + WINDOW[0],
-                                      yc:yc + WINDOW[1], xc:xc + WINDOW[2]]
+
+
+def phase_conv(dev, serve_pipe, mods) -> dict:
+    """Kernel 3 on the inputs of the 19 eligible convs of one saliency
+    forward: bf16 at the serve ROI, f32 on one sliding window."""
+    vol = _roi_input(serve_pipe, mods)
+    f32 = _segment_saliency_model(dev)
     out = {}
     for tag, model, x in (("bf16 ROI", serve_pipe.saliency_model, vol),
-                          ("f32 window", f32, window.contiguous())):
+                          ("f32 window", f32, _window_input(mods))):
         calls = _capture_convs(model, x)
         log(f"[conv] {tag}: input {tuple(x.shape)}, {len(calls)} eligible "
             f"convs")
@@ -1182,12 +1244,45 @@ def _check_labels(path: str) -> np.ndarray:
     return lab
 
 
-def phase_segment(dev) -> dict:
-    """``cli.segment`` on one synthetic case: the f32 sliding-window path
-    with kernel 3, the same on cuDNN, and ``--fast`` with kernel 3."""
+def _segment_run(inbox: str, out: str, tag: str, route: str, flags: list,
+                 convs: int) -> tuple:
+    """``cli.segment`` on the one case of ``inbox`` with
+    ``POINTUNET_FASTCONV=route``: (seconds a volume, launches, labelled
+    voxels; the labels). It must launch the conv kernel ``convs`` times
+    and the KNN kernel 6 times."""
     from pointunet_tpu_torch.cli import segment
 
-    runs = {}
+    with _env("POINTUNET_FASTCONV", route):
+        reset_launches()
+        seconds = segment.main([
+            "--data_3D_path", inbox, "--outSegment_path", out,
+            "--n_point", str(N_POINTS), "--device", "cuda", *flags,
+        ])
+        torch.cuda.synchronize()
+        counts = read_launches()
+    (case, secs), = seconds.items()
+    lab = _check_labels(os.path.join(out, f"{case}.nii.gz"))
+    n_lab = int((lab > 0).sum())
+    log(f"[segment] {tag} (POINTUNET_FASTCONV={route or 'unset'}"
+        f"{' ' + ' '.join(flags) if flags else ''}): {secs:.3f} s a "
+        f"volume, labels {lab.shape} {lab.dtype} values "
+        f"{sorted(set(np.unique(lab).tolist()))}, labelled voxels "
+        f"{n_lab}, kernel launches {counts}")
+    if (counts["conv3d_3x3"] != convs
+            or counts["knn_cell_window"] != LAUNCHES_PER_VOLUME
+            or counts["scatter_sorted"] or counts["windowed_scatter"]
+            or not 0 < n_lab <= N_POINTS):
+        raise AssertionError(f"{tag}: launches {counts}, {n_lab} "
+                             f"labelled voxels")
+    return {"seconds": secs, "launches": counts,
+            "labelled_voxels": n_lab}, lab
+
+
+def phase_segment(dev) -> tuple:
+    """``cli.segment`` on one synthetic case: the f32 sliding-window path
+    with kernel 3, the same on cuDNN, and ``--fast`` with kernel 3. (runs,
+    {run: labels})."""
+    runs, labels = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         inbox = os.path.join(tmp, "inbox")
         _write_cases(inbox, 1)
@@ -1197,33 +1292,10 @@ def phase_segment(dev) -> dict:
             ("segment_fast", "pallas", ["--fast", "--roi", *map(str, ROI)],
              CONVS_PER_FORWARD),
         ):
-            out = os.path.join(tmp, tag)
-            with _env("POINTUNET_FASTCONV", route):
-                reset_launches()
-                seconds = segment.main([
-                    "--data_3D_path", inbox, "--outSegment_path", out,
-                    "--n_point", str(N_POINTS), "--device", "cuda", *flags,
-                ])
-                torch.cuda.synchronize()
-                counts = read_launches()
-            (case, secs), = seconds.items()
-            lab = _check_labels(os.path.join(out, f"{case}.nii.gz"))
-            n_lab = int((lab > 0).sum())
-            log(f"[segment] {tag} (POINTUNET_FASTCONV={route or 'unset'}"
-                f"{' ' + ' '.join(flags) if flags else ''}): {secs:.3f} s a "
-                f"volume, labels {lab.shape} {lab.dtype} values "
-                f"{sorted(set(np.unique(lab).tolist()))}, labelled voxels "
-                f"{n_lab}, kernel launches {counts}")
-            if (counts["conv3d_3x3"] != convs
-                    or counts["knn_cell_window"] != LAUNCHES_PER_VOLUME
-                    or counts["scatter_sorted"] or counts["windowed_scatter"]
-                    or not 0 < n_lab <= N_POINTS):
-                raise AssertionError(f"{tag}: launches {counts}, {n_lab} "
-                                     f"labelled voxels")
-            runs[tag] = {"seconds": secs, "launches": counts,
-                         "labelled_voxels": n_lab}
+            runs[tag], labels[tag] = _segment_run(
+                inbox, os.path.join(tmp, tag), tag, route, flags, convs)
     torch.cuda.empty_cache()
-    return runs
+    return runs, labels
 
 
 def _write_clouds(root: str, dev, n_clouds: int = N_CLOUDS) -> list:
@@ -2788,6 +2860,418 @@ def phase_mesh(dev) -> dict:
     }
 
 
+def _route_env(fastconv, fused):
+    """``POINTUNET_FASTCONV`` and ``POINTUNET_FUSED_UPSAMPLE`` as given
+    (None: unset) within."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(_env("POINTUNET_FASTCONV", fastconv))
+    stack.enter_context(_env("POINTUNET_FUSED_UPSAMPLE", fused))
+    return stack
+
+
+def _serve_mods(dev) -> torch.Tensor:
+    """The (4, 240, 240, 155) volume of ``_write_cases``, on the card."""
+    from pointunet_tpu_torch.data.loader import BRATS_MODALITIES
+
+    vols = _brats_vols()
+    return torch.from_numpy(np.stack([vols[m] for m in BRATS_MODALITIES])).to(
+        dev)
+
+
+def _routes_serve(dev, card) -> tuple:
+    """(a) The Serve contract under each route: the attention stage
+    (CUDA events, mean of ROUTE_REPEATS after a warm-up), one request's
+    launches, logits and labels against the unset route's."""
+    pipe = _serve_pipe(dev)
+    mods = _serve_mods(dev)
+    out, base = {}, None
+    for name, fc, fused in ROUTES:
+        with _route_env(fc, fused):
+            ms = cuda_ms(lambda: pipe._attention_mask(mods), ROUTE_REPEATS)
+            logits = []
+            hook = pipe.saliency_model.register_forward_hook(
+                lambda m, i, o: logits.append(o.float()))
+            try:
+                reset_launches()
+                with torch.inference_mode():
+                    labels = pipe.segment_device(
+                        mods, torch.Generator(device=dev).manual_seed(0))
+                torch.cuda.synchronize()
+                counts = read_launches()
+            finally:
+                hook.remove()
+        vals = sorted(set(labels.unique().tolist()))
+        if base is None:
+            base = (logits[0], labels)
+        dlogit = float((logits[0] - base[0]).abs().max())
+        n_diff = int((labels != base[1]).sum())
+        # the fused route takes the UpsampleConvs before kernel 3 can
+        convs = (0 if fc != "pallas" else CONVS_PER_FORWARD
+                 - UPSAMPLE_CONVS * (fused == "1"))
+        log(f"[routes] (a) serve, route {name}: attention stage {ms:.3f} ms "
+            f"(mean of {ROUTE_REPEATS}); one request's launches {counts}; max "
+            f"|logit - unset's| {dlogit:.4e}; label voxels differing from "
+            f"unset's {n_diff} of {labels.numel()}; labels "
+            f"{[4 if v == 3 else v for v in vals]} | {card}")
+        if (not set(vals) <= {0, 1, 2, 3}
+                or counts["conv3d_3x3"] != convs
+                or counts["knn_cell_window"] != LAUNCHES_PER_VOLUME
+                or counts["scatter_sorted"] or counts["windowed_scatter"]):
+            raise AssertionError(f"serve route {name}: labels {vals}, "
+                                 f"launches {counts}")
+        out[name] = {"attention_ms": ms, "launches": counts,
+                     "max_abs_dlogit": dlogit, "label_voxels_differing": n_diff}
+        del logits, labels
+    vol = _roi_input(pipe, mods)
+    del mods
+    torch.cuda.empty_cache()
+    return out, pipe.saliency_model, vol
+
+
+def _conv_inputs(model, x, keep) -> list:
+    """(name, Conv module, its input) of every ``Conv`` of one forward of
+    ``model`` on ``x`` for which ``keep(module)`` holds."""
+    from pointunet_tpu_torch.models.fastconv import Conv
+
+    calls = []
+    hooks = [
+        m.register_forward_pre_hook(
+            lambda mod, args, _n=n: calls.append((_n, mod, args[0])))
+        for n, m in model.named_modules()
+        if isinstance(m, Conv) and keep(m)
+    ]
+    try:
+        with torch.inference_mode():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    return calls
+
+
+def _route_conv_case(name, mod, x, card) -> dict:
+    """(b) One conv of a forward on ``F.conv3d`` and on the fold, in its
+    compute type: times, bound and the gap between the two, held to the
+    bar of its type (bf16 with one folded slice: one bf16 ulp or 1e-5 x
+    max|F.conv3d|; bf16 3x3x3 under ``all``: 2^-6 x max|F.conv3d|, the
+    reference's three partial sums in bf16; f32: 2e-5 x max(1,
+    max|F.conv3d|))."""
+    import torch.nn.functional as F
+
+    from pointunet_tpu_torch.models import fastconv as fc
+
+    dt = mod.dtype or torch.promote_types(x.dtype, mod.weight.dtype)
+    x = x.to(dt)
+    if mod.upsample > 1:
+        x = fc._nearest_upsample(x, mod.upsample)
+    w = mod.weight.to(dt)
+    b = None if mod.bias is None else mod.bias.to(dt)
+    k = mod.kernel_size
+    fold = fc._decomposable(k)
+    pads = tuple(n // 2 for n in k)
+
+    def lib():
+        return F.conv3d(x, w, b, padding=pads)
+
+    def folded():
+        return fc._add_bias(fc.fast_conv3d(x, w, fold), b)
+
+    want, got = lib(), folded()
+    torch.cuda.synchronize()
+    gap = (got.float() - want.float()).abs()
+    scale = float(want.float().abs().max())
+    bf16 = dt == torch.bfloat16
+    ulp = _bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))
+    n_ulp = int((gap > ulp).sum()) if bf16 else 0
+    if not bf16:
+        bar = 2e-5 * max(1.0, scale)
+        ok = float(gap.max()) <= bar
+    elif k[fold] == 1:
+        ok = bool((gap <= ulp.clamp(min=1e-5 * scale)).all())
+    else:
+        ok = float(gap.max()) <= 2.0 ** -6 * scale
+    max_gap = float(gap.max())
+    del gap, ulp, want, got
+    ms_lib = cuda_ms(lib, CONV_REPEATS)
+    ms_fold = cuda_ms(folded, CONV_REPEATS)
+    bsz, cin = x.shape[:2]
+    cout = w.shape[0]
+    voxels = bsz * x.shape[2] * x.shape[3] * x.shape[4]
+    ops = 2 * k[0] * k[1] * k[2] * cin * cout * voxels
+    nbytes = x.element_size() * (x.numel() + w.numel() + cout * voxels)
+    rate = BF16_OPS_S if bf16 else F32_OPS_S
+    b_ms, by = bound_ms(nbytes, ops, rate), bound_by(nbytes, ops, rate)
+    log(f"[routes] (b) {name} {tuple(k)} {str(dt)[6:]} {cin}->{cout} at "
+        f"{tuple(x.shape[2:])}, fold axis {fold} ({k[fold]} slice(s)): "
+        f"F.conv3d {ms_lib:.4f} ms, fold {ms_fold:.4f} ms, bound {b_ms:.4f} "
+        f"ms by {by}; max |fold - F.conv3d| {max_gap:.3e} (max|F.conv3d| "
+        f"{scale:.3e}{f', {n_ulp} elements beyond one bf16 ulp' if bf16 else ''}"
+        f"): {'ok' if ok else 'FAILS its bar'} | {card}")
+    if not ok:
+        raise AssertionError(f"fold route of {name}: gap {max_gap}")
+    return {"conv": name, "kernel": list(k), "dtype": str(dt)[6:],
+            "cin": cin, "cout": cout, "volume": list(x.shape[2:]),
+            "ms_conv3d": ms_lib, "ms_fold": ms_fold, "bound_ms": b_ms,
+            "bound_by": by, "max_abs_gap": max_gap, "max_abs_conv3d": scale,
+            "beyond_one_ulp": n_ulp}
+
+
+def _routes_convs(tag, model, x, card, keep) -> list:
+    cases = []
+    calls = _conv_inputs(model, x, keep)
+    while calls:
+        name, mod, xc = calls.pop(0)
+        with torch.inference_mode():
+            cases.append(_route_conv_case(f"{tag} {name}", mod, xc, card))
+        del xc
+        torch.cuda.empty_cache()
+    log(f"[routes] (b) {tag}, the {len(cases)} convs: F.conv3d "
+        f"{sum(c['ms_conv3d'] for c in cases):.4f} ms, fold "
+        f"{sum(c['ms_fold'] for c in cases):.4f} ms, bound "
+        f"{sum(c['bound_ms'] for c in cases):.4f} ms | {card}")
+    return cases
+
+
+def _routes_fused_upsample(model, vol, card) -> list:
+    """(f) The 4 UpsampleConvs of a bf16 ROI forward: fused at the coarse
+    resolution and as repeat plus ``F.conv3d``; the gap held to (b)'s bar
+    of a bf16 3x3x3 conv (the fused weights sum up to 27 taps, rounded
+    once to bf16)."""
+    import torch.nn.functional as F
+
+    from pointunet_tpu_torch.models import fastconv as fc
+
+    cases = []
+    for name, mod, x in _conv_inputs(model, vol, lambda m: m.upsample > 1):
+        dt = mod.dtype
+        x, w = x.to(dt), mod.weight.to(dt)
+        b, s = mod.bias.to(dt), mod.upsample
+
+        def plain():
+            return F.conv3d(fc._nearest_upsample(x, s), w, b, padding=1)
+
+        def fused():
+            return fc._add_bias(fc.fused_upsample_conv3d(x, w, s), b)
+
+        with torch.inference_mode():
+            want, got = plain(), fused()
+            gap = (got.float() - want.float()).abs()
+            scale = float(want.float().abs().max())
+            ulp = _bf16_ulp(torch.maximum(got.float().abs(),
+                                          want.float().abs()))
+            n_ulp = int((gap > ulp).sum())
+            max_gap = float(gap.max())
+            del want, got, gap, ulp
+            ms_plain = cuda_ms(plain, CONV_REPEATS)
+            ms_fused = cuda_ms(fused, CONV_REPEATS)
+        ok = max_gap <= 2.0 ** -6 * scale
+        log(f"[routes] (f) {name} x{s} {tuple(x.shape[1:])} -> "
+            f"{w.shape[0]} ch: repeat + F.conv3d {ms_plain:.4f} ms, fused "
+            f"{ms_fused:.4f} ms; max gap {max_gap:.3e} (max|F.conv3d| "
+            f"{scale:.3e}, {n_ulp} elements beyond one bf16 ulp): "
+            f"{'ok' if ok else 'FAILS its bar'} | {card}")
+        if not ok:
+            raise AssertionError(f"fused upsample {name}: gap {max_gap}")
+        cases.append({"conv": name, "scale": s, "ms_repeat_conv3d": ms_plain,
+                      "ms_fused": ms_fused, "max_abs_gap": max_gap,
+                      "max_abs_conv3d": scale, "beyond_one_ulp": n_ulp})
+    if len(cases) != UPSAMPLE_CONVS:
+        raise AssertionError(f"{len(cases)} UpsampleConvs, expected "
+                             f"{UPSAMPLE_CONVS}")
+    return cases
+
+
+def _routes_segment(labels: dict, card) -> dict:
+    """(c) ``segment`` (f32 windows) with ``POINTUNET_FASTCONV=pallas``
+    (kernel 3 and the fold) and ``=fold1``, its labels against phase 7's
+    runs of this call."""
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        inbox = os.path.join(tmp, "inbox")
+        _write_cases(inbox, 1)
+        for tag, route, convs in (
+                ("segment_pallas_fold", "pallas",
+                 CONVS_PER_FORWARD * SEGMENT_WINDOWS),
+                ("segment_fold1", "fold1", 0)):
+            run, lab = _segment_run(inbox, os.path.join(tmp, tag), tag,
+                                    route, [], convs)
+            run["agreement"] = {other: float((lab == ref).mean())
+                                for other, ref in labels.items()
+                                if other in ("segment", "segment_cudnn")}
+            log(f"[routes] (c) {tag}: {run['seconds']:.3f} s a volume; label "
+                f"agreement with phase 7's runs {run['agreement']} | {card}")
+            runs[tag] = run
+    torch.cuda.empty_cache()
+    return runs
+
+
+def _routes_pancreas(dev, card) -> dict:
+    """(d) The Pancreas contract's attention stage (bf16, gate stride 2,
+    the whole 256x256x160 CT) under unset, ``fold1`` and ``pallas``."""
+    from pointunet_tpu_torch.cli.segment import build_pipeline
+    from pointunet_tpu_torch.pipeline.fused import FusedPointUnet
+
+    p = build_pipeline(argparse.Namespace(
+        dataset="pancreas", fast=True, sa_stride=None,
+        n_point=PANCREAS_POINTS, saliency_checkpoint=None,
+        pointseg_checkpoint=None))
+    pipe = FusedPointUnet(p.saliency_model, p.pointseg_model, p.scfg, p.pcfg,
+                          threshold=0.9, volume_shape=PANCREAS_SHAPE,
+                          device=dev)
+    rng = np.random.default_rng(4)
+    mods = torch.from_numpy(rng.standard_normal(
+        (1,) + PANCREAS_SHAPE, dtype=np.float32)).to(dev)
+    out = {}
+    for name, fc, fused in ROUTES:
+        if name not in ("unset", "fold1", "pallas"):
+            continue
+        with _route_env(fc, fused):
+            ms = cuda_ms(lambda: pipe._attention_mask(mods), ROUTE_REPEATS)
+            reset_launches()
+            pipe._attention_mask(mods)
+            torch.cuda.synchronize()
+            counts = read_launches()
+        log(f"[routes] (d) pancreas, route {name}: attention stage {ms:.3f} "
+            f"ms (mean of {ROUTE_REPEATS}); one stage's launches {counts} | "
+            f"{card}")
+        if counts["conv3d_3x3"] != (CONVS_PER_FORWARD if fc == "pallas" else 0):
+            raise AssertionError(f"pancreas route {name}: {counts}")
+        out[name] = {"attention_ms": ms, "launches": counts}
+    del pipe, mods
+    torch.cuda.empty_cache()
+    return out
+
+
+def _routes_train(dev, card) -> dict:
+    """(e) The f32 saliency train step (remat, batch 2 of (64,160,160), a
+    seeded batch with a labelled ball), unset and under ``fold1``: one
+    warm step, ROUTE_STEPS timed; the first losses within rtol 1e-3."""
+    from pointunet_tpu_torch.core.config import brats_saliency_config
+    from pointunet_tpu_torch.train.saliency import SaliencyTrainer
+
+    cfg = brats_saliency_config()
+    rng = np.random.default_rng(7)
+    shape = (cfg.batch_size,) + tuple(cfg.patch_size)
+    zz, yy, xx = np.meshgrid(*(np.arange(n) for n in cfg.patch_size),
+                             indexing="ij", sparse=True)
+    ball = ((zz - 32) ** 2 + (yy - 80) ** 2 + (xx - 80) ** 2) < 20 ** 2
+    images = rng.standard_normal(shape + (4,), dtype=np.float32)
+    images += 3.0 * ball[None, ..., None]
+    batch = (images, np.ones(shape, np.float32),
+             np.broadcast_to(ball, shape).astype(np.int32))
+    out = {}
+    for name in ("unset", "fold1"):
+        with _env("POINTUNET_FASTCONV", None if name == "unset" else name):
+            trainer = SaliencyTrainer(cfg, device=str(dev))
+            state = trainer.init_state()
+            reset_launches()
+            first, _ = _timed_saliency_step(trainer, state, batch)
+            torch.cuda.reset_peak_memory_stats()
+            steps = [_timed_saliency_step(trainer, state, batch)[1]["step"]
+                     for _ in range(ROUTE_STEPS)]
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            counts = read_launches()
+        del trainer, state
+        torch.cuda.empty_cache()
+        mean = sum(steps) / len(steps)
+        log(f"[routes] (e) saliency train step f32 remat, route {name}: first "
+            f"loss {first:.6f}, step ms {', '.join(f'{v:.3f}' for v in steps)} "
+            f"(mean {mean:.3f}), peak {peak:.3f} GB, launches {counts} | "
+            f"{card}")
+        if any(counts.values()):
+            raise AssertionError(f"train route {name}: launches {counts}")
+        out[name] = {"first_loss": first, "step_ms": steps, "mean_ms": mean,
+                     "peak_gb": peak, "launches": counts}
+    rel = abs(out["fold1"]["first_loss"] - out["unset"]["first_loss"]) / abs(
+        out["unset"]["first_loss"])
+    out["first_loss_rel_gap"] = rel
+    if not rel <= 1e-3:
+        raise AssertionError(f"fold1 train step: first loss {rel} apart")
+    return out
+
+
+def _routes_knn(dev, card) -> dict:
+    """(g) The standalone ``knn_pallas`` on phase 2's cloud, its support
+    and queries shuffled apart: one kernel-1 launch, rows equal to its
+    plain version, phase 2's recall bars, rows in the caller's order (a
+    query's nearest is itself)."""
+    from pointunet_tpu_torch.ops import knn_cuda
+
+    xyz, tumor = _kernel_cloud(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ps = torch.randperm(xyz.shape[0], generator=gen, device=dev)
+    pq = torch.randperm(xyz.shape[0], generator=gen, device=dev)
+    sup, qry = xyz[ps], xyz[pq]
+    reset_launches()
+    got = knn_cuda.knn_pallas(sup, qry, K)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    real = knn_cuda.knn_cell_window
+    knn_cuda.knn_cell_window = knn_cuda.knn_cell_window_plain
+    try:
+        want = knn_cuda.knn_pallas(sup, qry, K)
+    finally:
+        knn_cuda.knn_cell_window = real
+    bad = int((got != want).any(1).sum())
+    own = int((sup[got[:, 0].long()] == qry).all(1).sum())
+    sel = torch.randperm(qry.shape[0], generator=gen, device=dev)[
+        :RECALL_QUERIES]
+    hit = _tie_aware_recall(sup, qry[sel], got[sel], K)
+    flags = tumor[pq][sel].float()
+    overall = float(hit.mean())
+    tum = float((hit * flags).sum() / flags.sum().clamp(min=1))
+    ms = cuda_ms(lambda: knn_cuda.knn_pallas(sup, qry, K), 5)
+    log(f"[routes] (g) knn_pallas, {tuple(sup.shape)} shuffled support and "
+        f"queries, k={K}: launches {counts}, rows differing from the plain "
+        f"version {bad}, queries whose nearest is their own point {own} of "
+        f"{qry.shape[0]}, "
+        f"tie-aware recall overall {overall:.6f}, tumor {tum:.6f}; "
+        f"{ms:.4f} ms a call (sorts, kernel, unsort) | {card}")
+    if (counts["knn_cell_window"] != 1 or bad or own != qry.shape[0]
+            or overall < 0.99 or tum < 0.995):
+        raise AssertionError(f"knn_pallas: {counts}, {bad} rows, own {own}, "
+                             f"recall {overall} / {tum}")
+    return {"launches": counts, "rows_differing": bad, "own_first": own,
+            "recall_overall": overall, "recall_tumor": tum, "ms": ms}
+
+
+def _foldable(k333: bool):
+    """Selects the stride-1, dilation-1 convs that are 3x3x3 (``k333``) or
+    are not: the gate's and the 1x1x1 convs."""
+    return lambda m: (m.strides == (1, 1, 1) and m.dilation == (1, 1, 1)
+                      and (m.kernel_size == (3, 3, 3)) == k333)
+
+
+def phase_routes(dev, card, segment_labels) -> dict:
+    """Phase 13: the conv routes of ``models/fastconv.py`` and the KNN
+    entries (see the module docstring)."""
+    t0 = time.perf_counter()
+    out = {}
+    out["serve"], roi_model, vol = _routes_serve(dev, card)
+    out["convs_bf16_roi"] = _routes_convs("bf16 ROI", roi_model, vol, card,
+                                          _foldable(False))
+    out["all_3x3x3_bf16_roi"] = _routes_convs(
+        "bf16 ROI, all", roi_model, vol, card, _foldable(True))
+    out["fused_upsample"] = _routes_fused_upsample(roi_model, vol, card)
+    del roi_model, vol
+    mods = _serve_mods(dev)
+    window = _window_input(mods)
+    del mods
+    f32 = _segment_saliency_model(dev)
+    out["convs_f32_window"] = _routes_convs("f32 window", f32, window, card,
+                                            _foldable(False))
+    del f32, window
+    torch.cuda.empty_cache()
+    out["segment"] = _routes_segment(segment_labels, card)
+    out["pancreas"] = _routes_pancreas(dev, card)
+    out["train"] = _routes_train(dev, card)
+    out["knn_pallas"] = _routes_knn(dev, card)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[routes] phase 13 took {out['seconds']:.1f} s | {card}")
+    return out
+
+
 def _conv_summary(conv, launches, by_path) -> dict:
     """Kernel 3's entry of the ``kernels`` line: the sums over the 19
     convs of one bf16 ROI forward (the serve path's), the f32 window's
@@ -2833,7 +3317,7 @@ def main() -> int:
     conv = phase_conv(dev, pipe, mods)
     del pipe, mods
     torch.cuda.empty_cache()
-    segment = phase_segment(dev)
+    segment, segment_labels = phase_segment(dev)
     train = phase_train(dev)
     saliency = phase_saliency(dev)
     pancreas = phase_pancreas(dev)
@@ -2841,6 +3325,8 @@ def main() -> int:
     bridge = phase_bridge(dev)
     torch.cuda.empty_cache()
     mesh = phase_mesh(dev)
+    torch.cuda.empty_cache()
+    routes = phase_routes(dev, card, segment_labels)
 
     # each path's launches, counted from 0 over its run; "launches" is
     # the count on the path that carries the kernel in this run: the
@@ -2870,6 +3356,15 @@ def main() -> int:
         "mesh_serve_per_rank": mesh["serve"]["cudnn"]["launches"],
         "mesh_serve_pallas_per_rank": mesh["serve"]["pallas"]["launches"],
         "mesh_knn_point_sharded_per_rank": mesh.pop("knn_launches"),
+        # phase 13
+        **{f"serve_route_{name}": r["launches"]
+           for name, r in routes["serve"].items()},
+        **{name: r["launches"] for name, r in routes["segment"].items()},
+        **{f"pancreas_attention_route_{name}": r["launches"]
+           for name, r in routes["pancreas"].items()},
+        **{f"train_saliency_route_{name}": routes["train"][name]["launches"]
+           for name in ("unset", "fold1")},
+        "knn_pallas_standalone": routes["knn_pallas"]["launches"],
     }
 
     def by_path(name):
@@ -2895,6 +3390,8 @@ def main() -> int:
         "searches", "recall", "cross_slab", "knn_ms", "knn_kernel_ms")}
     scatter["mesh"] = {"step_cases": mesh.pop("step_cases"), **mesh}
     window["launches_by_path"] = by_path("windowed_scatter")
+    kernel["knn_pallas"] = routes.pop("knn_pallas")
+    conv_entry["routes"] = routes
     entries = [kernel, scatter, conv_entry, window]
     for entry in entries:                  # nvcc seconds of its source
         entry["build_s"] = build_s.get(os.path.basename(entry["source"]))

@@ -14,7 +14,8 @@ device-resident path (``pipeline/fused.py``: bf16 saliency net in one ROI
 window, gate at stride 2). The reference's flags, plus ``--device``
 (default ``cuda``; the CPU only when asked). ``POINTUNET_FASTCONV=pallas``
 in the environment routes the saliency net's 3x3x3 convs through kernel 3
-on both paths.
+on both paths (and folds its gate's and 1x1x1 convs into 2-D convs; the
+other routes: ``models/fastconv.py``).
 
 Weights: random from seed 0, as the reference's when it is given no
 checkpoint; ``--saliency_checkpoint`` and ``--pointseg_checkpoint``

@@ -9,6 +9,7 @@ only the leaf is converted:
 
   Dense kernel (in, out)        -> Linear weight (out, in)
   Conv kernel (D, H, W, I, O)   -> Conv3d weight (O, I, D, H, W)
+  2-D Conv kernel (H, W, I, O)  -> Conv2d weight (O, I, H, W)
   GroupNorm/BatchNorm scale     -> weight;  bias -> bias
   BatchNorm mean / var          -> running_mean / running_var
 
@@ -52,6 +53,8 @@ def _convert_leaf(leaf: str, value: np.ndarray) -> np.ndarray:
         return value.T
     if leaf == "kernel" and value.ndim == 5:
         return value.transpose(4, 3, 0, 1, 2)
+    if leaf == "kernel" and value.ndim == 4:
+        return value.transpose(3, 2, 0, 1)
     return value
 
 

@@ -1,6 +1,8 @@
-"""Spatial and channel-wise 3-D attention gates (``pointunet_tpu/models/attention3d.py``).
+"""Spatial and channel-wise attention gates (``pointunet_tpu/models/attention3d.py``).
 
-Channels-first (B, C, D, H, W).
+Channels-first: (B, C, D, H, W) for the 3-D gates the saliency net uses,
+(B, C, H, W) for the 2-D ones, which complete the reference's layer set
+(no model of either package calls them).
 """
 from __future__ import annotations
 
@@ -59,7 +61,8 @@ class SpatialAttention3D(FlaxNamed):
 
 class ChannelWiseAttention3D(FlaxNamed):
     """GAP -> dense(C/4, relu) -> dense(C, sigmoid) -> multiply. The dense
-    layers run in at least f32 (f32 for bf16 input), as in the reference."""
+    layers run in at least f32 (f32 for bf16 input), as in the reference.
+    The mean runs over every axis after C."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -67,7 +70,43 @@ class ChannelWiseAttention3D(FlaxNamed):
         self.child("Dense", nn.Linear(channels // 4, channels), "fc2")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        att = x.mean(dim=(2, 3, 4),                            # (B, C)
+        spatial = tuple(range(2, x.ndim))
+        att = x.mean(dim=spatial,                              # (B, C)
                      dtype=torch.promote_types(x.dtype, torch.float32))
         att = torch.sigmoid(self.fc2(F.relu(self.fc1(att))))
-        return x * att.to(x.dtype)[:, :, None, None, None]
+        return x * att.to(x.dtype)[(...,) + (None,) * len(spatial)]
+
+
+class SpatialAttention2D(FlaxNamed):
+    """2-D gate: two separable k=9 branches (conv, norm+relu, conv,
+    norm+relu) summed -> sigmoid -> broadcast over C. The convs are flax's
+    2-D ``nn.Conv`` (SAME, stride 1, f32): here ``nn.Conv2d`` with odd
+    kernels and symmetric pads, its weight (Cout, Cin, kh, kw)."""
+
+    def __init__(self, channels: int, kernel: int = 9,
+                 instance_norm: bool = True):
+        super().__init__()
+        k, c = kernel, channels
+        self.channels = c
+        self.branches = []
+        for pair_a, pair_b in (((1, k), (k, 1)), ((k, 1), (1, k))):
+            self.branches.append((
+                self.child("Conv", nn.Conv2d(c, c // 2, pair_a,
+                                             padding="same")),
+                self.child("NormRelu", NormRelu(c // 2, instance_norm)),
+                self.child("Conv", nn.Conv2d(c // 2, 1, pair_b,
+                                             padding="same")),
+                self.child("NormRelu", NormRelu(1, instance_norm)),
+            ))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gate = None
+        for conv_a, norm_a, conv_b, norm_b in self.branches:
+            h = norm_b(conv_b(norm_a(conv_a(x))))
+            gate = h if gate is None else gate + h
+        return torch.sigmoid(gate).expand(-1, self.channels, -1, -1)
+
+
+class ChannelWiseAttention2D(ChannelWiseAttention3D):
+    """2-D channel gate of (B, C, H, W): the same layers, the mean over
+    (H, W)."""

@@ -18,6 +18,11 @@ no neighbour takes the first neighbour found (row 0 if none).
 * ``knn_cell_window`` is the wrapper: the plain version for CPU tensors;
   for CUDA tensors it launches the kernel of ``csrc/knn_cell_window.cu``
   or raises. ``LAUNCHES`` counts its kernel launches.
+* ``knn_pallas(support, query, k)`` is the standalone entry of the
+  reference's ``knn_pallas``: it sorts two clouds in any row order on
+  their own grid, runs ``knn_cell_window`` and returns the rows in the
+  caller's order. Not to be confused with ``knn_window.knn_cell_window``,
+  the reference's approximate search of XLA ops, ported in plain torch.
 * ``tile_windows_plain`` is the kernel's tile plan in plain torch: for
   each block of ``TILE`` sorted queries and each (dx, dy), the union of
   the queries' spans, which the kernel stages in shared memory
@@ -35,6 +40,8 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build
+from .knn import pad_k_columns
+from .knn_window import _grid_resolution
 
 # kernel launches made by ``knn_cell_window`` in this process
 LAUNCHES = 0
@@ -210,3 +217,56 @@ def knn_cell_window(
         raise RuntimeError(f"knn_cell_window: kernel launch failed, CUDA error {rc}")
     LAUNCHES += 1
     return out
+
+
+def knn_pallas(
+    support: torch.Tensor,
+    query: torch.Tensor,
+    k: int,
+    alpha: float = 1.8,
+    tile: int = 128,
+    slack: float = 4.0,
+) -> torch.Tensor:
+    """Cell-window KNN of two clouds in any row order (the reference's
+    standalone ``knn_pallas``): (Nq, k) int32 indices into ``support``,
+    nearest first, in the caller's query order; columns beyond the
+    support's size repeat the last (``pad_k_columns``).
+
+    Both clouds are sorted (stably) by raster cell id on the support's
+    ``alpha``-scaled grid; ``knn_cell_window`` searches them (kernel 1 on
+    CUDA tensors, its plain version on the CPU) and the rows are mapped
+    back to the caller's support rows and query order. Within the 27
+    cells around a query the neighbours are exact, so ``tile`` and
+    ``slack``, which size the reference's fixed windows, are accepted for
+    its signature and change nothing. The kernel is instantiated for k
+    in ``KERNEL_KS``: a smaller k runs the next one up and keeps its
+    first columns (the same neighbours)."""
+    support = support.float()
+    query = query.float()
+    ns = int(support.shape[0])
+    k_req, k = k, min(k, ns)
+    r = _grid_resolution(ns, alpha)
+    lo = support.amin(0)
+    span = torch.clamp(support.amax(0) - lo, min=1e-6)
+
+    def cell3(pts):
+        return torch.clamp(torch.floor((pts - lo) / span * r), 0, r - 1
+                           ).to(torch.int32)
+
+    sc3 = cell3(support)
+    s_ids = (sc3[:, 0] * r + sc3[:, 1]) * r + sc3[:, 2]
+    s_order = torch.argsort(s_ids, stable=True)
+    qc3 = cell3(query)
+    q_ids = (qc3[:, 0] * r + qc3[:, 1]) * r + qc3[:, 2]
+    q_order = torch.argsort(q_ids, stable=True)
+    k_run = k
+    if support.device.type == "cuda":
+        k_run = min((kk for kk in KERNEL_KS if kk >= k), default=k)
+    idx_sorted = knn_cell_window(
+        support[s_order].contiguous(),
+        cell_prefix_sums(s_ids[s_order], r),
+        query[q_order].contiguous(), qc3[q_order].contiguous(), k_run, r,
+    )[:, :k]
+    out = torch.empty_like(idx_sorted)
+    out[q_order] = s_order[idx_sorted.long()].to(torch.int32)
+    return pad_k_columns(out, k_req)

@@ -19,8 +19,10 @@
 * Whole-volume prediction through the sliding window (``ops/window.py``),
   with the reference's view transposes, flip and multi-view averaging.
 
-The model's convs run ``F.conv3d`` in training: the reference's train
-step uses XLA's convs, never its Pallas conv, which has no gradient. With
+The model's convs run ``F.conv3d`` in training unless
+``POINTUNET_FASTCONV`` picks a fold (``fold1``, ``k9``, ``all``: 2-D
+``F.conv2d``, differentiable): the reference's train step uses XLA's
+convs, never its Pallas conv, which has no gradient. With
 ``POINTUNET_FASTCONV=pallas`` a train step on the card raises
 (``ops/conv_cuda.py:refuse_autograd``); prediction and evaluation run
 under ``torch.inference_mode`` and take kernel 3 there.

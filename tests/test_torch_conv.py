@@ -176,12 +176,15 @@ def test_route_only_for_eligible_convs(monkeypatch):
 
 
 @pytest.mark.parametrize("value,mode", [
-    ("pallas", "pallas"), ("", "off"), ("off", "off"), ("all", "off"),
-    ("1", "off"), ("fold1", "off"), ("k9", "off"),
+    ("pallas", "pallas"), ("", "off"), ("off", "off"), ("all", "all"),
+    ("1", "all"), ("fold1", "fold1"), ("k9", "k9"), ("0", "off"),
+    ("tpu", "off"), ("FOLD1", "off"), ("pallas ", "off"),
 ])
 def test_decomposition_mode(monkeypatch, value, mode):
-    """Only the fused 3x3x3 route is ported: the reference's depth
-    decompositions (all, fold1, k9) are TPU workarounds and map to off."""
+    """The reference's modes (``pointunet_tpu/models/fastconv.py:46-64``):
+    ``all``/``1``, ``fold1``, ``k9`` and ``pallas`` select their routes;
+    unset, ``off``, ``0`` and any other value leave them off on every
+    device."""
     monkeypatch.setenv("POINTUNET_FASTCONV", value)
     assert fastconv._decomposition_mode() == mode
 
