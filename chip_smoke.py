@@ -48,9 +48,13 @@ fails (non-zero exit, no result line) on any fault. Phases:
 6. conv: the inputs of the 19 eligible convs of one saliency forward, in
    bf16 at the serve ROI (1,4,160,208,192) and in f32 on one
    (1,4,64,160,160) window, through the conv kernel and its plain
-   version, each on the path ``conv_path`` gives it (printed: bf16 with
-   Cin % 16 == 0 on the tensor cores, f32 with Cin % 8 == 0 on the
-   tensor cores with 3xTF32 products, the init conv on the CUDA cores):
+   version, each on the path ``conv_path`` gives it, held to the rule
+   restated in ``_want_path`` (printed: bf16 with Cin % 16 == 0 on the
+   tensor cores, the head (Cout <= 2) on the narrow-Cout design, the
+   coarse levels (W <= 64, not a multiple of 32) on the deep one; f32
+   the head on the narrow design's CUDA cores, the rest with Cin % 8 ==
+   0 on the tensor cores with 3xTF32 products; the init conv on the CUDA
+   cores):
    in bf16 at most one bf16 ulp apart on every element (or within the
    f32 bar where the products cancel below it), in f32 within 1e-5 x
    max |plain| and, with TF32 off, within 2e-5 x max(1, max |F.conv3d|)
@@ -1079,6 +1083,31 @@ def _bf16_ulp(a: torch.Tensor) -> torch.Tensor:
     return torch.exp2(e - 7)
 
 
+def _want_path(bf16: bool, cin: int, cout: int, wd: int) -> str:
+    """The kernel-3 design a conv of this shape takes: with an even W,
+    bf16 with Cin % 16 == 0 the narrow-Cout one for the head (Cout <= 2,
+    Cin <= 256, W % 8 == 0), the deep one for the coarse levels (Cout >
+    8, W <= 64 and not a multiple of the wide design's 32-column tile),
+    else the wide tensor-core one; f32 the narrow-Cout one for the head (Cin % 4
+    == 0, its resident weight of Cin x 27 x Cout padded to 2, 4 or 8
+    floats and its 3 x 4 x 42 x 40-float ring within the 232,448 bytes of
+    shared memory a block may take), else 3xTF32 with Cin % 8 == 0; the
+    rest the CUDA cores."""
+    if wd % 2 == 0 and bf16 and cin % 16 == 0:
+        if cout <= 2 and cin <= 256 and wd % 8 == 0:
+            return "narrow_tensor_cores"
+        return ("deep_tensor_cores" if cout > 8 and wd <= 64 and wd % 32
+                else "tensor_cores")
+    if wd % 2 == 0 and not bf16:
+        co = 2 if cout <= 2 else 4 if cout <= 4 else 8
+        if (cout <= 8 and cin % 4 == 0
+                and 4 * (cin * 27 * co + 3 * 4 * 42 * 40) <= 232_448):
+            return "narrow_cuda_cores"
+        if cin % 8 == 0:
+            return "tensor_cores_3xtf32"
+    return "cuda_cores"
+
+
 def _conv_case(name: str, x, w, b) -> dict:
     """One captured conv input through the kernel, its plain version and
     (f32) ``F.conv3d``; the bars of phase 6, times and bound."""
@@ -1096,10 +1125,7 @@ def _conv_case(name: str, x, w, b) -> dict:
     gap = (got.float() - plain.float()).abs()
     max_err = float(gap.max())
     scale = float(plain.float().abs().max())
-    want_path = ("tensor_cores" if bf16 and cin % 16 == 0 and wd % 2 == 0
-                 else "tensor_cores_3xtf32" if not bf16 and cin % 8 == 0
-                 and wd % 2 == 0 else "cuda_cores")
-    checks = {"path": path == want_path}
+    checks = {"path": path == _want_path(bf16, cin, cout, wd)}
     if bf16:
         # one bf16 ulp, but never below the f32 bar: where the 27 x Cin
         # products cancel, the two f32 sums (in different orders) differ

@@ -13,19 +13,29 @@ channels-first layout: x (B, Cin, D, H, W), w (Cout, Cin, 3, 3, 3).
   casts once. It is the function the kernel computes, not ``F.conv3d``.
   The CPU path and the comparison on the card use it.
 * ``conv3d_3x3`` is the wrapper: the plain version for CPU tensors; for
-  CUDA tensors it launches one of the three designs of ``csrc/conv3x3.cu``,
-  as ``conv_path`` chooses, or raises. ``LAUNCHES`` counts its launches.
+  CUDA tensors it launches one of the six designs of ``csrc/conv3x3.cu``,
+  as ``conv_path`` chooses, or raises. ``LAUNCHES`` counts its calls
+  that launch (one a call, whatever the number of grids).
   The kernel has no backward, as the reference's Pallas conv has none
   (JAX gives ``pallas_call`` a JVP rule but no transpose rule, so
   ``jax.grad`` through it raises): on CUDA tensors the wrapper raises
   (``refuse_autograd``) when autograd would need the conv's gradient,
   instead of returning an output with no ``grad_fn``. The CPU path stays
   the plain, differentiable version.
-* ``conv_path(dtype, cin, cout, wd)``: ``"tensor_cores"`` for bf16 with
-  Cin % 16 == 0 and an even W (every bf16 conv of the saliency net but
-  the 4 -> 16 init conv), ``"tensor_cores_3xtf32"`` for f32 with Cin % 8
-  == 0 and an even W (every f32 conv but the init conv), ``"cuda_cores"``
-  otherwise.
+* ``conv_path(dtype, cin, cout, wd)``, for an even W: bf16 with Cin % 16
+  == 0 takes ``"narrow_tensor_cores"`` for Cout <= 2 (the head; Cin <=
+  256, W % 8 == 0, x 16-byte aligned), ``"deep_tensor_cores"`` for Cout >
+  8 and W <= 64 that the wide design's
+  32-column tiles do not cover exactly (the coarse levels but the
+  Pancreas CT's W = 64 and 32, where those tiles are full and the wide
+  design measured faster), else ``"tensor_cores"``; f32 takes
+  ``"narrow_cuda_cores"`` for Cout <= 8 with Cin % 4 == 0 (its weight
+  fitting shared memory), else ``"tensor_cores_3xtf32"`` with Cin % 8 ==
+  0; the rest (the init conv, odd W) ``"cuda_cores"``.
+* ``deep_tile`` and ``tc_splits``: the deep design's plan (rows a block,
+  runs of Cin), passed to its launch; ``narrow_slabs``: the plain form of
+  the narrow designs' slab rule (planes a block), which their kernels
+  apply themselves.
 * ``pack_weight(w)``: the bf16 tensor-core path's B operand, (Cin / 16,
   27, Cout rounded up to 8, 16), K-major, with ``wp[c // 16, dz * 9 + dy
   * 3 + dx, o, c % 16] = w[o, c, dz, dy, dx]`` and zeros for o >= Cout.
@@ -41,9 +51,10 @@ channels-first layout: x (B, Cin, D, H, W), w (Cout, Cin, 3, 3, 3).
 * ``conv_splits(...)``: how many runs of input channels the 3xTF32 kernel
   splits a deep conv into (summed in a fixed order by a second kernel).
 
-What bounds it on the H100 is operations (2 x 27 x Cin x Cout a voxel,
-far above the card's ratio of operations to bytes). The first port ran
-every conv as f32 FMAs on the CUDA cores, 36x over its bf16 bound; both
+What bounds it on the H100 is operations for the wide convs (2 x 27 x
+Cin x Cout a voxel, far above the card's ratio of operations to bytes)
+and bytes for the head (Cout = 2). The first port ran every conv as f32
+FMAs on the CUDA cores, 36x over its bf16 bound; the wide convs of both
 types now run as implicit GEMMs on the tensor cores (wgmma with A from
 registers and B from shared memory, f32 sums in registers, a 3-stage
 cp.async ring; the source note has the designs). bf16 stages 16 channels
@@ -51,11 +62,18 @@ and transposes each stage for ldmatrix; f32 stages 8 and computes each
 product as three TF32 products of split operands (3xTF32: hi x hi, hi x
 lo, lo x hi): one TF32 product keeps 11 significant bits and misses the
 2e-5 f32 bar. f32's least time is then 3 x operations over the card's
-495 TFLOP/s of dense TF32, below the CUDA cores' 67 TFLOP/s of f32. An
-optional bias is added after the rounding, in the input's type (the
-reference's ``y + bias``); every design fuses that add in the same
-order. The library is built and loaded by ``ops/cuda_build.py`` at first
-use.
+495 TFLOP/s of dense TF32, below the CUDA cores' 67 TFLOP/s of f32. The
+head's designs read each input byte about once a block, the whole
+weight resident: the bf16 one puts the 27 taps x 2 output channels in
+the wgmma's N and sums the shifted partials per output voxel; the f32
+one marches down a slab of planes on the CUDA cores, each staged plane
+feeding the three output planes that read it. The deep design takes a
+whole row width a block so that its M tile is filled, N = Cout up to
+128, and
+splits Cin into runs where its tiles cannot fill the card. An optional
+bias is added after the rounding, in the input's type (the reference's
+``y + bias``); every design fuses that add in the same order. The
+library is built and loaded by ``ops/cuda_build.py`` at first use.
 """
 from __future__ import annotations
 
@@ -73,34 +91,120 @@ LAUNCHES = 0
 SOURCE = cuda_build.CSRC / "conv3x3.cu"
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _XF_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_NW_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_NF_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_DP_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TC_CHANNELS = 16         # input channels a bf16 tensor-core stage (one k16)
 XF_CHANNELS = 8          # input channels a 3xTF32 stage (one k8)
 SPLIT_BLOCKS = 264       # blocks (2 an SM) below which 3xTF32 splits Cin
+SMS = 132                # the H100's streaming multiprocessors
+SMEM_BYTES = 232_448     # shared memory a block can take
+NARROW_COUT = 8          # the f32 narrow design's widest Cout
+NARROW_TC_COUT = 2       # the bf16 one's: 27 taps x 2 fill its N = 56
+NARROW_TC_CIN = 256      # the bf16 narrow design's deepest Cin (resident)
+NF_CHANNELS = 4          # input channels an f32 narrow stage
+NF_RAW_BYTES = 3 * 4 * NF_CHANNELS * 42 * 40   # its ring: 3 x (4, 42, 40)
+DEEP_MAX_W = 64          # the deep design's widest W (a whole row a block)
 
 
 def load_library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library, with its
-    three entry points typed (CUDA cores, bf16 and f32 tensor cores)."""
+    six entry points typed."""
     lib = cuda_build.load(SOURCE, "conv3x3_launch", _ARGTYPES)
     for name, types in (("conv3x3_tc_launch", _ARGTYPES),
-                        ("conv3x3_xf_launch", _XF_ARGTYPES)):
+                        ("conv3x3_xf_launch", _XF_ARGTYPES),
+                        ("conv3x3_nw_launch", _NW_ARGTYPES),
+                        ("conv3x3_nf_launch", _NF_ARGTYPES),
+                        ("conv3x3_dp_launch", _DP_ARGTYPES)):
         fn = getattr(lib, name)
         fn.argtypes = types
         fn.restype = ctypes.c_int
     return lib
 
 
+def _narrow_co(cout: int) -> int:
+    """Cout padded to the f32 narrow design's register tile: 2, 4 or 8."""
+    return next(n for n in (2, 4, 8) if cout <= n)
+
+
 def conv_path(dtype: torch.dtype, cin: int, cout: int, wd: int) -> str:
-    """Which kernel takes a conv on the card: ``"tensor_cores"`` for bf16
-    with Cin a multiple of 16, ``"tensor_cores_3xtf32"`` for f32 with Cin
-    a multiple of 8, both with an even W (any Cout: N is padded to 8);
-    ``"cuda_cores"`` for the rest (Cin = 4; odd W)."""
+    """Which design takes a conv on the card (see the module docstring):
+    ``"narrow_tensor_cores"``, ``"deep_tensor_cores"`` or
+    ``"tensor_cores"`` for bf16, ``"narrow_cuda_cores"`` or
+    ``"tensor_cores_3xtf32"`` for f32, ``"cuda_cores"`` for the rest."""
     if wd % 2 == 0 and dtype == torch.bfloat16 and cin % TC_CHANNELS == 0:
+        if cout <= NARROW_TC_COUT and cin <= NARROW_TC_CIN and wd % 8 == 0:
+            return "narrow_tensor_cores"
+        if cout > NARROW_COUT and wd <= DEEP_MAX_W and wd % 32 != 0:
+            return "deep_tensor_cores"
         return "tensor_cores"
-    if wd % 2 == 0 and dtype == torch.float32 and cin % XF_CHANNELS == 0:
-        return "tensor_cores_3xtf32"
+    if wd % 2 == 0 and dtype == torch.float32:
+        if (cout <= NARROW_COUT and cin % NF_CHANNELS == 0
+                and 4 * cin * 27 * _narrow_co(cout) + NF_RAW_BYTES
+                <= SMEM_BYTES):
+            return "narrow_cuda_cores"
+        if cin % XF_CHANNELS == 0:
+            return "tensor_cores_3xtf32"
     return "cuda_cores"
+
+
+def narrow_planes(dtype: torch.dtype, b: int, cout: int, d: int, h: int,
+                  wd: int) -> int:
+    """Output planes a block of the narrow designs owns (its slab): in f32
+    10 / CO (CO = Cout padded to 2, 4 or 8: the slab's sums stay in
+    registers); in bf16 (whose sums leave the registers a plane at a time)
+    the slab that minimises the waves of blocks (b x 10 x 32-voxel tile
+    columns x slabs over one block an SM) times the planes a block stages
+    (nz + 2)."""
+    if dtype != torch.bfloat16:
+        return 10 // _narrow_co(cout)
+    tiles = b * (-(-h // 10)) * (-(-wd // 32))
+    best = None
+    for s in range(1, d + 1):
+        nz = -(-d // s)
+        cost = -(-(tiles * -(-d // nz)) // SMS) * (nz + 2)
+        if best is None or cost < best[0]:
+            best = (cost, nz)
+    return best[1]
+
+
+def narrow_slabs(dtype: torch.dtype, b: int, cout: int, d: int, h: int,
+                 wd: int) -> list:
+    """The (z0, z1) output planes of each block of a tile column in the
+    narrow designs (``narrow_planes`` a slab, the last cut at D): they
+    cover the D planes once, in order."""
+    nz = narrow_planes(dtype, b, cout, d, h, wd)
+    return [(z, min(d, z + nz)) for z in range(0, d, nz)]
+
+
+def deep_tile(cout: int, h: int, wd: int) -> tuple:
+    """The deep design's tile for Cout, H and W: (BN, M, yb). BN, the
+    column tile, is 64 up to Cout = 64 and 128 above (256 takes two);
+    M, the voxel rows a block, is 512 up to BN = 64 and 256 at 128 (the
+    f32 sums a thread); yb, the output rows a block, is as many as the
+    padded, flattened rows (yb - 1) * (W + 2) + W fit in M, evened out
+    over the tiles that cover H."""
+    bn = 64 if cout <= 64 else 128
+    m = 512 if bn == 64 else 256
+    yb_max = (m - wd) // (wd + 2) + 1
+    y_tiles = -(-h // yb_max)
+    return bn, m, -(-h // y_tiles)
+
+
+def tc_splits(b: int, cin: int, cout: int, d: int, h: int, wd: int) -> int:
+    """Runs of Cin chunks (16 channels) the deep design splits a conv
+    into, summed in a fixed order by a second kernel: 1 when its tiles
+    (``deep_tile``'s yb rows of a plane x BN columns) already give a block
+    to every SM, else as many runs (whole chunks, none empty) as keep
+    the blocks within one a SM."""
+    bn, _, yb = deep_tile(cout, h, wd)
+    tiles = b * d * (-(-h // yb)) * (-(-cout // bn))
+    chunks = cin // TC_CHANNELS
+    if tiles >= SMS or chunks < 2:
+        return 1
+    per = -(-chunks // min(chunks, SMS // tiles))
+    return -(-chunks // per)
 
 
 def pack_weight(w: torch.Tensor) -> torch.Tensor:
@@ -109,10 +213,13 @@ def pack_weight(w: torch.Tensor) -> torch.Tensor:
     w[o, c, dz, dy, dx]``, zeros for o >= Cout."""
     cout, cin = w.shape[:2]
     np_ = -(-cout // 8) * 8
+    packed = w.reshape(
+        cout, cin // TC_CHANNELS, TC_CHANNELS, 27).permute(1, 3, 0, 2)
+    if np_ == cout:                    # one copy, no zero fill
+        return packed.contiguous()
     wp = torch.zeros((cin // TC_CHANNELS, 27, np_, TC_CHANNELS),
                      dtype=w.dtype, device=w.device)
-    wp[:, :, :cout] = w.reshape(
-        cout, cin // TC_CHANNELS, TC_CHANNELS, 27).permute(1, 3, 0, 2)
+    wp[:, :, :cout] = packed
     return wp
 
 
@@ -288,6 +395,33 @@ def conv3d_3x3(
             rc = lib.conv3x3_tc_launch(
                 x.data_ptr(), wp.data_ptr(), bias_ptr, out.data_ptr(),
                 b, cin, cout, wp.shape[2], d, h, wd, stream,
+            )
+        elif path == "narrow_tensor_cores":
+            if x.data_ptr() % 16:
+                raise ValueError(
+                    "conv3d_3x3: the head's kernel stages x in 16-byte "
+                    "vectors (cp.async); x must start 16-byte aligned")
+            wp = pack_weight(w)
+            rc = lib.conv3x3_nw_launch(
+                x.data_ptr(), wp.data_ptr(), bias_ptr, out.data_ptr(),
+                b, cin, cout, d, h, wd,
+                narrow_planes(x.dtype, b, cout, d, h, wd), stream,
+            )
+        elif path == "narrow_cuda_cores":
+            rc = lib.conv3x3_nf_launch(
+                x.data_ptr(), w.data_ptr(), bias_ptr, out.data_ptr(),
+                b, cin, cout, d, h, wd, stream,
+            )
+        elif path == "deep_tensor_cores":
+            wp = pack_weight(w)
+            yb = deep_tile(cout, h, wd)[2]
+            splits = tc_splits(b, cin, cout, d, h, wd)
+            partial = (None if splits == 1 else torch.empty(
+                (splits,) + tuple(out.shape), dtype=torch.float32, device=dev))
+            rc = lib.conv3x3_dp_launch(
+                x.data_ptr(), wp.data_ptr(), bias_ptr, out.data_ptr(),
+                None if partial is None else partial.data_ptr(),
+                b, cin, cout, wp.shape[2], d, h, wd, yb, splits, stream,
             )
         else:
             rc = lib.conv3x3_launch(

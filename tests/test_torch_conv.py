@@ -20,8 +20,17 @@ Tolerances:
   summed from the packed weight the way the kernel indexes it (stage of
   16 channels and one dz, 9 (dy, dx) taps): within 1e-5 x max |plain| of
   the plain version (f32, sum order only);
-* the path choice at the 19 captured shapes of one bf16 ROI forward and
-  one f32 window: exact.
+* the path choice at the 19 captured shapes of one bf16 ROI forward, one
+  f32 window and one bf16 Pancreas CT, and the narrow and deep designs'
+  plans (slabs, rows, runs of Cin): exact;
+* plain vs ``conv3d_3x3_pallas`` at the head (128 -> 2) and a deep conv
+  (256 channels on a small volume): f32 as above; bf16 (inputs
+  representable in bf16) within one bf16 ulp of the f32 reference
+  rounded to bf16, or 1e-5 x its max where the products cancel (the bar
+  chip_smoke.py holds the kernel to: two f32 sums in other orders);
+* the deep design's split sum (runs of Cin chunks summed in order, then
+  rounded once) from the packed weight: within 1e-5 x max |plain| of the
+  plain version in f32.
 
 The CUDA kernel cannot run here; its plain version computes the same
 function, and chip_smoke.py holds the kernel to it on the card.
@@ -244,7 +253,8 @@ ROI_CONVS = (
 )
 
 
-@pytest.mark.parametrize("cin,cout", [(32, 2), (16, 64), (48, 20)])
+@pytest.mark.parametrize("cin,cout", [(32, 2), (16, 64), (48, 20), (128, 2),
+                                      (32, 128), (16, 256)])
 def test_packed_weight_reads_back(cin, cout):
     w = torch.from_numpy(np.random.default_rng(5).standard_normal(
         (cout, cin, 3, 3, 3)).astype(np.float32)).bfloat16()
@@ -467,14 +477,175 @@ def test_conv_path_at_the_captured_shapes():
     paths = [conv_cuda.conv_path(torch.bfloat16, cin, cout, wd)
              for cin, cout, wd in ROI_CONVS]
     assert paths[0] == "cuda_cores"                  # the init conv, 4 -> 16
-    assert paths[1:] == ["tensor_cores"] * 18
-    # the f32 window (1, 4, 64, 160, 160): every conv but the init conv on
-    # the tensor cores with 3xTF32 products
+    # the coarse levels (W <= 64: the L2, L3, L4 blocks, up_c5, up_c4) on
+    # the deep design, the head (128 -> 2) on the narrow one
+    deep = [i for i, (_, _, wd) in enumerate(ROI_CONVS) if wd <= 64]
+    assert deep == [5, 6, 7, 8, 9, 10, 13, 14]
+    assert [paths[i] for i in deep] == ["deep_tensor_cores"] * 8
+    assert paths[18] == "narrow_tensor_cores"
+    assert [p for i, p in enumerate(paths)
+            if i not in deep + [0, 18]] == ["tensor_cores"] * 9
+    # the f32 window (1, 4, 64, 160, 160): every conv but the init conv and
+    # the head on the tensor cores with 3xTF32 products, the head on the
+    # narrow design's CUDA cores
     paths = [conv_cuda.conv_path(torch.float32, cin, cout, wd * 160 // 192)
              for cin, cout, wd in ROI_CONVS]
     assert paths[0] == "cuda_cores"
-    assert paths[1:] == ["tensor_cores_3xtf32"] * 18
+    assert paths[1:18] == ["tensor_cores_3xtf32"] * 17
+    assert paths[18] == "narrow_cuda_cores"
+    # the head's kernel takes whole 8-element vectors of W and Cout <= 2
+    assert conv_cuda.conv_path(torch.bfloat16, 128, 2, 196) == "tensor_cores"
+    assert conv_cuda.conv_path(torch.bfloat16, 128, 4, 192) == "tensor_cores"
     assert conv_cuda.conv_path(torch.bfloat16, 16, 16, 13) == "cuda_cores"
     assert conv_cuda.conv_path(torch.bfloat16, 24, 16, 12) == "cuda_cores"
     assert conv_cuda.conv_path(torch.float32, 16, 16, 13) == "cuda_cores"
     assert conv_cuda.conv_path(torch.float32, 12, 16, 12) == "cuda_cores"
+
+
+# the three contracts' first conv input (B, Cin, D, H, W), dtype and the
+# path of each of the 19 convs (the levels of ROI_CONVS: W / 192 of the
+# input's W; Pancreas has one CT channel)
+CONTRACTS = {
+    "bf16 ROI": ((1, 4, 160, 208, 192), torch.bfloat16),
+    "f32 window": ((1, 4, 64, 160, 160), torch.float32),
+    "bf16 Pancreas": ((1, 1, 160, 256, 256), torch.bfloat16),
+}
+WANT_PATHS = {
+    "bf16 ROI": ["cuda_cores"] + ["tensor_cores"] * 4
+    + ["deep_tensor_cores"] * 6 + ["tensor_cores"] * 2
+    + ["deep_tensor_cores"] * 2 + ["tensor_cores"] * 3
+    + ["narrow_tensor_cores"],
+    "f32 window": ["cuda_cores"] + ["tensor_cores_3xtf32"] * 17
+    + ["narrow_cuda_cores"],
+    # W = 64 and 32 fill the wide design's 32-column tiles: only L4 (W =
+    # 16) takes the deep design
+    "bf16 Pancreas": ["cuda_cores"] + ["tensor_cores"] * 8
+    + ["deep_tensor_cores"] * 2 + ["tensor_cores"] * 7
+    + ["narrow_tensor_cores"],
+}
+
+
+def _contract_convs(name):
+    """(Cin, Cout, (D, H, W)) of the 19 convs of a contract's forward."""
+    (_, c0, d, h, wd), _ = CONTRACTS[name]
+    out = []
+    for i, (cin, cout, w192) in enumerate(ROI_CONVS):
+        level = {192: 0, 96: 1, 48: 2, 24: 3, 12: 4}[w192]
+        out.append((c0 if i == 0 else cin, cout,
+                    (d >> level, h >> level, wd >> level)))
+    return out
+
+
+@pytest.mark.parametrize("name,index", [
+    (name, i) for name in CONTRACTS for i in range(19)])
+def test_conv_path_by_contract(name, index):
+    """Each conv of each contract takes its design: the head the narrow
+    one, the coarse bf16 levels (W <= 64, not a multiple of 32) the deep
+    one."""
+    cin, cout, (_, _, wd) = _contract_convs(name)[index]
+    dtype = CONTRACTS[name][1]
+    assert conv_cuda.conv_path(dtype, cin, cout, wd) == WANT_PATHS[name][index]
+
+
+@pytest.mark.parametrize("dtype,cout,shape", [
+    (torch.bfloat16, 2, (160, 208, 192)), (torch.bfloat16, 2, (160, 256, 256)),
+    (torch.bfloat16, 1, (1, 10, 32)), (torch.bfloat16, 2, (13, 20, 40)),
+    (torch.bfloat16, 2, (7, 9, 16)), (torch.float32, 2, (64, 160, 160)),
+    (torch.float32, 4, (37, 9, 30)), (torch.float32, 8, (5, 40, 32)),
+    (torch.float32, 3, (2, 3, 4))])
+def test_narrow_slabs_cover_every_plane(dtype, cout, shape):
+    """The narrow designs' slabs cover the D output planes once, in order,
+    none empty: 10 / CO planes a slab in f32, the slab the wave model
+    picks in bf16 (the whole depth where one slab a tile column already
+    gives a block to each SM, as at the serve ROI)."""
+    d, h, wd = shape
+    slabs = conv_cuda.narrow_slabs(dtype, 1, cout, d, h, wd)
+    nz = conv_cuda.narrow_planes(dtype, 1, cout, d, h, wd)
+    if dtype == torch.float32:
+        assert nz == 10 // {2: 2, 3: 4, 4: 4, 8: 8}[cout]
+    elif shape == (160, 208, 192):
+        assert nz == 160               # 126 tile columns: one block each
+    assert [z for z0, z1 in slabs for z in range(z0, z1)] == list(range(d))
+    assert all(z1 > z0 for z0, z1 in slabs)
+    assert all(z1 - z0 == nz for z0, z1 in slabs[:-1])
+    assert len(slabs) == -(-d // nz)
+
+
+# the deep design's convs of both bf16 contracts, and tc_splits and
+# deep_tile at them: (splits, (BN, M, yb))
+DEEP_PLANS = {
+    ("bf16 ROI", 5): (1, (64, 512, 9)), ("bf16 ROI", 7): (2, (128, 256, 9)),
+    ("bf16 ROI", 9): (6, (128, 256, 13)), ("bf16 ROI", 13): (1, (128, 256, 5)),
+    ("bf16 Pancreas", 9): (3, (128, 256, 8)),
+}
+DEEP_SHAPES = list(DEEP_PLANS)
+
+
+@pytest.mark.parametrize("name,index", DEEP_SHAPES)
+def test_deep_plan_at_the_captured_shapes(name, index):
+    """The deep design's plan at its convs of both bf16 contracts:
+    its rows fit the M tile and cover H; the split runs cover every Cin
+    chunk once, in order, none empty; only a grid of fewer tiles than SMs
+    splits, and its blocks stay within one an SM."""
+    cin, cout, (d, h, wd) = _contract_convs(name)[index]
+    assert conv_cuda.conv_path(torch.bfloat16, cin, cout,
+                               wd) == "deep_tensor_cores"
+    splits = conv_cuda.tc_splits(1, cin, cout, d, h, wd)
+    bn, m, yb = conv_cuda.deep_tile(cout, h, wd)
+    assert (splits, (bn, m, yb)) == DEEP_PLANS[(name, index)]
+    assert (yb - 1) * (wd + 2) + wd <= m
+    y_tiles = -(-h // yb)
+    assert (y_tiles - 1) * yb < h <= y_tiles * yb
+    chunks = cin // 16
+    per = -(-chunks // splits)
+    runs = [list(range(k * per, min(chunks, (k + 1) * per)))
+            for k in range(splits)]
+    assert [c for run in runs for c in run] == list(range(chunks))
+    assert all(runs)
+    tiles = d * y_tiles * -(-cout // bn)
+    if tiles >= conv_cuda.SMS:
+        assert splits == 1
+    assert tiles * splits <= max(tiles, conv_cuda.SMS)
+
+
+@pytest.mark.parametrize("dtype,cin,cout,shape", [
+    (torch.float32, 128, 2, (5, 6, 16)), (torch.bfloat16, 128, 2, (5, 6, 16)),
+    (torch.float32, 256, 32, (6, 8, 12)), (torch.bfloat16, 256, 32, (6, 8, 12)),
+])
+def test_plain_matches_pallas_at_the_new_paths(interpret, dtype, cin, cout,
+                                               shape):
+    """The plain version against the reference's Pallas conv at a head-like
+    conv and a deep one (see the module docstring for the bars)."""
+    x, w = _inputs(np.random.default_rng(8), shape, cin, cout)
+    if dtype == torch.bfloat16:
+        x, w = (torch.from_numpy(a).bfloat16().float().numpy() for a in (x, w))
+    want = np.array(conv_pallas.conv3d_3x3_pallas(jnp.asarray(x),
+                                                  jnp.asarray(w), bz=4, by=8))
+    xt, wt = _to_port(x, w)
+    got = conv_cuda.conv3d_3x3(xt.to(dtype), wt.to(dtype))
+    assert got.dtype == dtype and got.shape == (1, cout) + shape
+    got = _from_port(got, False)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+        return
+    want_b = torch.from_numpy(want).bfloat16().float().numpy()
+    ulp = _bf16_ulp(np.maximum(np.abs(got), np.abs(want_b)))
+    bar = np.maximum(ulp, 1e-5 * np.abs(want_b).max())
+    assert (np.abs(got - want_b) <= bar).all()
+
+
+@pytest.mark.parametrize("cin,cout,runs", [(64, 64, 2), (128, 32, 3),
+                                           (256, 16, 6)])
+def test_deep_split_sum_matches_plain(cin, cout, runs):
+    """The deep design's arithmetic from its packed weight (pack_weight),
+    its Cin chunks in ``runs`` contiguous runs summed in order: within
+    1e-5 x max |plain| of the plain version (f32 sum order only)."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal(
+        (1, cin, 3, 4, 6)).astype(np.float32))
+    w = torch.from_numpy(
+        (rng.standard_normal((cout, cin, 3, 3, 3)) * 0.1).astype(np.float32))
+    want = conv_cuda.conv3d_3x3_plain(x, w.bfloat16().float())
+    got = _conv_from_packed(x, conv_cuda.pack_weight(w.bfloat16()), cout,
+                            runs=runs)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
