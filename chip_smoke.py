@@ -184,20 +184,41 @@ fails (non-zero exit, no result line) on any fault. Phases:
    standalone ``knn_pallas`` on phase 2's cloud with support and queries
    shuffled apart: one kernel-1 launch, rows equal to the plain
    version's, phase 2's recall bars, each query's nearest its own point.
-   Each line ends with the card's name and power limit.
+   Each line ends with the card's name and power limit;
+14. remaining: what the last slice of the port added. (a) the Block64
+   configuration (``block64_pointseg_config(use_bfloat16=True)``: 180,000
+   points, the BraTS net, its class counts) on a cloud that
+   ``cli/data_prepare_blocks.py:block_to_points`` makes from the 64^3
+   block of phase 8's tumour volumes (``_brats_vols``) at
+   ``BLOCK64_ORIGIN``: its 4 cell-window searches held to kernel 1's
+   plain version (phase 2's bars), one warm-up step whose 5 scatter
+   inputs are held to kernel 2's (phase 3's), then 5 timed steps with
+   ``PointSegTrainer`` (split, peak memory, finite losses whose last
+   three average below the first), exactly ``knn_searches`` (4) KNN and
+   ``sorted_scatters`` (5) scatter launches a step; (b) ``ops.knn``'s
+   ``knn_with_distances`` (16,384 support points and queries, k=16) and
+   ``knn_batch`` (2 such clouds) on the card against the same functions
+   on the CPU: tie-aware recall 1.0, d^2 within 1e-6 x max d^2 + 1e-7,
+   both timed; (c) ``core.debug.profile_trace`` around one warm Serve
+   request: its Chrome trace holds the request's CUDA kernels, kernel
+   1's among them once a launch (6), and the 5 kernels that took the
+   most device time are printed.
 
 Every path is driven with the kernels' launch counts set to 0 just before
 it and read just after. Before the last line it prints the card
 (``nvidia-smi``) and one JSON object describing the four kernels (phase
-13's results under kernel 3's ``routes`` and kernel 1's ``knn_pallas``); the
-last line is ``{"ok": true, "device": {...}}``. It imports nothing of
-JAX.
+13's results under kernel 3's ``routes`` and kernel 1's ``knn_pallas``,
+phase 14's under kernel 1's ``block64``, ``knn_plain`` and
+``profile_trace`` and kernel 2's ``block64``); the last line is
+``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import ctypes
+import glob
 import gzip
 import hashlib
 import json
@@ -261,6 +282,15 @@ ROUTE_STEPS = 3                # timed saliency train steps a route
 CONV_REPEATS = 5               # timed calls of a conv a route
 PANCREAS_SHAPE = (256, 256, 160)
 UPSAMPLE_CONVS = 4             # the saliency net's UpsampleConvs (3x3x3)
+# phase 14: the (x, y, z) corner of the 64^3 block of _brats_vols that
+# holds the tumour ball (radius 24 about (140, 100, 80)); timed Block64
+# steps after a warm-up; the clouds of (b); the kernels printed from (c)
+BLOCK64_ORIGIN = (108, 68, 48)
+BLOCK64_STEPS = 5
+KNN_POINTS = 16_384            # support points and queries of a cloud
+KNN_GRID = 32                  # (b)'s clouds: voxel centres of a 32^3 grid
+KNN_BATCH = 2
+TRACE_TOP_OPS = 5
 # the card's peaks (NVIDIA H100 SXM data sheet): device memory bytes/s,
 # f32 operations/s outside the tensor cores, bf16 on the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -3298,6 +3328,221 @@ def phase_routes(dev, card, segment_labels) -> dict:
     return out
 
 
+def _block64_cloud(dev, n_points: int):
+    """The Block64 cloud: the 64^3 block at ``BLOCK64_ORIGIN`` of the
+    tumour volumes of ``_brats_vols`` through ``block_to_points`` (its
+    brain voxels, a seeded subset of ``n_points``), BraTS label 4 as 3
+    (as ``data_prepare_brats`` maps it), xyz in voxels over the volume's
+    dims (as phase 8's cloud): (1, N, 3) xyz, (1, N, 7) cat(xyz, the 4
+    modalities), (1, N) labels, on ``dev``."""
+    from pointunet_tpu_torch.cli.data_prepare_blocks import (
+        BLOCK,
+        block_to_points,
+    )
+    from pointunet_tpu_torch.data.loader import BRATS_MODALITIES
+
+    vols = _brats_vols(tumour=True)
+    box = tuple(slice(o, o + BLOCK) for o in BLOCK64_ORIGIN)
+    volume = np.stack([vols[m][box] for m in BRATS_MODALITIES])
+    label = vols["seg"][box].astype(np.int32)
+    label[label == 4] = 3
+    xyz, feats, labels = block_to_points(
+        volume, label, (volume != 0).any(0), n_points, BLOCK64_ORIGIN)
+    xyz = torch.from_numpy(xyz / np.asarray(VOLUME, np.float32)).to(dev)
+    feats = torch.cat([xyz, torch.from_numpy(feats).to(dev)], 1)
+    labels = torch.from_numpy(labels.astype(np.int64)).to(dev)
+    return xyz[None], feats[None], labels[None]
+
+
+def _block64_train(dev, card) -> dict:
+    """(a) The Block64 train step: searches against kernel 1's plain
+    version, a warm-up step's scatters against kernel 2's, then
+    ``BLOCK64_STEPS`` timed steps (see the module docstring)."""
+    from pointunet_tpu_torch.cli.profile_train import timed_step
+    from pointunet_tpu_torch.core import block64_pointseg_config
+    from pointunet_tpu_torch.models.randlanet import search_grid
+    from pointunet_tpu_torch.train import PointSegTrainer
+
+    cfg = block64_pointseg_config(use_bfloat16=True)
+    searches, scatters = knn_searches(cfg), sorted_scatters(cfg)
+    xyz, feats, labels = _block64_cloud(dev, cfg.num_points)
+    log(f"[block64] {cfg.name}: level sizes {cfg.level_sizes}, class "
+        f"counts {cfg.class_counts}; block at {BLOCK64_ORIGIN}: "
+        f"{tuple(xyz.shape)} points, labels "
+        f"{torch.bincount(labels[0], minlength=4).tolist()}; {searches} KNN "
+        f"kernel launches a pyramid, {scatters} sorted scatters a step")
+    shapes, pyr = _search_cases(xyz[0], searches, "block64")
+    del pyr
+    torch.cuda.empty_cache()
+
+    trainer = PointSegTrainer(cfg, device="cuda")
+    state = trainer.init_state()
+    losses, splits, launches = [], [], collections.Counter()
+    for i in range(1 + BLOCK64_STEPS):
+        reset_launches()
+        with _capture() if i == 0 else contextlib.nullcontext() as captured:
+            m, split = timed_step(trainer, state, xyz, feats, labels)
+        counts = read_launches()
+        launches.update(counts)
+        per_step = (counts["knn_cell_window"], counts["scatter_sorted"])
+        losses.append(float(m["loss"]))
+        splits.append(split)
+        log(f"[block64] step {i}{' (warm-up)' if i == 0 else ''}: loss "
+            f"{losses[-1]:.6f}, "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+            + f"; KNN launches {per_step[0]}, scatter launches "
+            f"{per_step[1]} | {card}")
+        if (per_step != (searches, scatters) or counts["conv3d_3x3"]
+                or counts["windowed_scatter"]):
+            raise AssertionError(f"block64 launches a step {counts}")
+        if i == 0:
+            step_cases = _step_cases(captured, search_grid(xyz)[2], scatters)
+            del captured
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    timed = splits[1:]
+    mean = {k: sum(sp[k] for sp in timed) / len(timed) for k in timed[0]}
+    log(f"[block64] train step split (ms, mean of steps 1-{BLOCK64_STEPS}): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in mean.items())
+        + f"; step {sum(mean.values()):.3f} ms; peak memory (steps "
+        f"1-{BLOCK64_STEPS}) {peak:.3f} GB; losses {losses} | {card}")
+    if (not all(np.isfinite(losses))
+            or not np.mean(losses[-3:]) < losses[0]):
+        raise AssertionError(f"block64 losses do not descend: {losses}")
+    del trainer, state
+    torch.cuda.empty_cache()
+    return {"launches": dict(launches), "searches": searches,
+            "scatters_per_step": scatters,
+            "knn": {"shapes": shapes,
+                    "ms_searches": sum(sh["ms"] for sh in shapes),
+                    "bound_ms_searches": sum(sh["bound_ms"] for sh in shapes)},
+            "step_cases": step_cases, "losses": losses, "split_ms": mean,
+            "step_ms": sum(mean.values()), "peak_gb": peak}
+
+
+def _knn_plain(dev, card) -> dict:
+    """(b) ``knn_with_distances`` and ``knn_batch`` on the card against
+    the same functions on the CPU, on clouds of voxel centres (full of
+    distance ties): tie-aware recall and d^2."""
+    from pointunet_tpu_torch.ops import knn_batch, knn_with_distances
+
+    gen = torch.Generator().manual_seed(14)
+    grid = torch.stack(torch.meshgrid(
+        *(torch.arange(KNN_GRID),) * 3, indexing="ij"), -1).reshape(-1, 3)
+    clouds = torch.stack([
+        grid[torch.randperm(grid.shape[0], generator=gen)[:KNN_POINTS]]
+        for _ in range(2 * KNN_BATCH)]).float() / KNN_GRID
+    support, query = clouds[:KNN_BATCH], clouds[KNN_BATCH:]
+    t0 = time.perf_counter()
+    ref = [knn_with_distances(support[b], query[b], K)
+           for b in range(KNN_BATCH)]
+    cpu_s = (time.perf_counter() - t0) / KNN_BATCH
+    sd, qd = support.to(dev), query.to(dev)
+    idx, d2 = knn_with_distances(sd[0], qd[0], K)
+    batch = knn_batch(sd, qd, K)
+    torch.cuda.synchronize()
+
+    def compare(b, got_idx, got_d2=None):
+        ref_idx, ref_d2 = ref[b]
+        tol = 1e-6 * float(ref_d2.max()) + 1e-7
+        got_idx = got_idx.cpu().long()
+        exact = ((query[b][:, None, :] - support[b][got_idx]) ** 2).sum(-1)
+        recall = float((exact <= ref_d2[:, -1:] + tol).float().mean())
+        err = (0.0 if got_d2 is None
+               else float((got_d2.cpu() - ref_d2).abs().max()))
+        ok = (got_idx.shape == ref_idx.shape and recall == 1.0
+              and err <= tol)
+        return recall, err, tol, ok
+
+    rec, err, tol, ok = compare(0, idx, d2)
+    ok = (ok and idx.dtype == batch.dtype == torch.int32
+          and d2.dtype == torch.float32)
+    batch_checks = [compare(b, batch[b]) for b in range(KNN_BATCH)]
+    ms = cuda_ms(lambda: knn_with_distances(sd[0], qd[0], K), 5)
+    batch_ms = cuda_ms(lambda: knn_batch(sd, qd, K), 3)
+    log(f"[remaining] (b) knn_with_distances Ns=Nq={KNN_POINTS} k={K} on "
+        f"the card vs the CPU: tie-aware recall {rec}, max |d^2 - CPU's| "
+        f"{err:.3e} (bar {tol:.3e}); {ms:.3f} ms (CPU {cpu_s * 1e3:.1f} ms); "
+        f"knn_batch B={KNN_BATCH}: recall "
+        f"{[c[0] for c in batch_checks]}, {batch_ms:.3f} ms | {card}")
+    if not ok or not all(c[3] for c in batch_checks):
+        raise AssertionError(
+            f"knn_with_distances / knn_batch on the card: recall {rec}, "
+            f"d^2 err {err} (bar {tol}), dtypes {idx.dtype} {d2.dtype}, "
+            f"batch {batch_checks}")
+    return {"ns": KNN_POINTS, "nq": KNN_POINTS, "k": K, "recall": rec,
+            "max_abs_err_d2": err, "ms": ms, "cpu_ms": cpu_s * 1e3,
+            "batch": KNN_BATCH, "batch_recall": [c[0] for c in batch_checks],
+            "batch_ms": batch_ms}
+
+
+def _profiled_request(dev, card) -> dict:
+    """(c) ``profile_trace`` around one warm Serve request: the trace's
+    CUDA kernels, kernel 1's among them, the top ``TRACE_TOP_OPS``."""
+    from pointunet_tpu_torch.core import profile_trace
+
+    pipe = _serve_pipe(dev)
+    mods = _serve_mods(dev)
+    with torch.inference_mode():
+        pipe.segment_device(mods, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as logdir:
+        reset_launches()
+        with profile_trace(logdir):
+            with torch.inference_mode():
+                labels = pipe.segment_device(
+                    mods, torch.Generator(device=dev).manual_seed(0))
+            torch.cuda.synchronize()
+        counts = read_launches()
+        files = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        nbytes = sum(os.path.getsize(f) for f in files)
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    by_name = collections.defaultdict(float)
+    for e in kernels:
+        by_name[e["name"]] += e.get("dur", 0.0) / 1e3          # us -> ms
+    knn_events = sum("knn_cell_window_kernel" in e["name"] for e in kernels)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:TRACE_TOP_OPS]
+    busy = sum(by_name.values())
+    vals = set(labels.unique().tolist())
+    log(f"[remaining] (c) profile_trace of one warm Serve request: "
+        f"{len(files)} trace file ({nbytes} B), {len(kernels)} CUDA kernel "
+        f"events ({busy:.3f} ms of device time), kernel 1's "
+        f"{knn_events} (launches {counts['knn_cell_window']}); labels "
+        f"{sorted(vals)} | {card}")
+    for name, ms in top:
+        log(f"[remaining] (c)   {ms:.3f} ms  {name[:120]}")
+    if (len(files) != 1 or not kernels
+            or knn_events != counts["knn_cell_window"]
+            or counts["knn_cell_window"] != LAUNCHES_PER_VOLUME
+            or counts["scatter_sorted"] or counts["conv3d_3x3"]
+            or counts["windowed_scatter"] or not vals <= {0, 1, 2, 3}):
+        raise AssertionError(
+            f"profile_trace: {len(files)} files, {len(kernels)} kernel "
+            f"events, {knn_events} of kernel 1, launches {counts}, labels "
+            f"{vals}")
+    del pipe, mods
+    torch.cuda.empty_cache()
+    return {"launches": counts, "trace_bytes": nbytes,
+            "kernel_events": len(kernels), "knn_events": knn_events,
+            "device_ms": busy,
+            "top_ops": [{"name": n, "ms": ms} for n, ms in top]}
+
+
+def phase_remaining(dev, card) -> dict:
+    """Phase 14: what the last slice of the port added (see the module
+    docstring)."""
+    t0 = time.perf_counter()
+    out = {"block64": _block64_train(dev, card),
+           "knn_plain": _knn_plain(dev, card),
+           "profile_trace": _profiled_request(dev, card)}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[remaining] phase 14 took {out['seconds']:.1f} s | {card}")
+    return out
+
+
 def _conv_summary(conv, launches, by_path) -> dict:
     """Kernel 3's entry of the ``kernels`` line: the sums over the 19
     convs of one bf16 ROI forward (the serve path's), the f32 window's
@@ -3353,6 +3598,8 @@ def main() -> int:
     mesh = phase_mesh(dev)
     torch.cuda.empty_cache()
     routes = phase_routes(dev, card, segment_labels)
+    torch.cuda.empty_cache()
+    remaining = phase_remaining(dev, card)
 
     # each path's launches, counted from 0 over its run; "launches" is
     # the count on the path that carries the kernel in this run: the
@@ -3391,6 +3638,9 @@ def main() -> int:
         **{f"train_saliency_route_{name}": routes["train"][name]["launches"]
            for name in ("unset", "fold1")},
         "knn_pallas_standalone": routes["knn_pallas"]["launches"],
+        # phase 14: the warm-up and timed Block64 steps, the profiled request
+        "train_block64": remaining["block64"].pop("launches"),
+        "serve_profiled": remaining["profile_trace"]["launches"],
     }
 
     def by_path(name):
@@ -3418,6 +3668,10 @@ def main() -> int:
     window["launches_by_path"] = by_path("windowed_scatter")
     kernel["knn_pallas"] = routes.pop("knn_pallas")
     conv_entry["routes"] = routes
+    scatter["block64"] = remaining["block64"].pop("step_cases")
+    kernel["block64"] = remaining["block64"]
+    kernel["knn_plain"] = remaining["knn_plain"]
+    kernel["profile_trace"] = remaining["profile_trace"]
     entries = [kernel, scatter, conv_entry, window]
     for entry in entries:                  # nvcc seconds of its source
         entry["build_s"] = build_s.get(os.path.basename(entry["source"]))

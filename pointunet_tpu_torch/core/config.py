@@ -60,6 +60,16 @@ def brats_pointseg_config(**overrides) -> PointSegConfig:
     return dataclasses.replace(PointSegConfig(), **overrides)
 
 
+def block64_pointseg_config(**overrides) -> PointSegConfig:
+    """BraTS_Block64: clouds of 64^3 blocks with their class counts."""
+    base = PointSegConfig(
+        name="BraTS_Block64",
+        num_points=180_000,
+        class_counts=(1403.0, 22.0, 80.0, 11.0),
+    )
+    return dataclasses.replace(base, **overrides)
+
+
 def pancreas_pointseg_config(**overrides) -> PointSegConfig:
     base = PointSegConfig(
         name="Pancreas",

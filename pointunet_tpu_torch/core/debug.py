@@ -1,11 +1,14 @@
-"""Step timing and the NaN trap (``pointunet_tpu/core/debug.py``).
+"""Step timing, the NaN trap and profiling (``pointunet_tpu/core/debug.py``).
 
 The reference's NaN trap flips ``jax_debug_nans``; the port's turns on
 ``torch.autograd.set_detect_anomaly``, which names the forward op whose
-backward produced a NaN.
+backward produced a NaN. The reference's ``profile_trace`` wraps a region
+in a ``jax.profiler`` trace; the port's in ``torch.profiler``, written as
+a Chrome trace that TensorBoard's profiler plugin and Perfetto read.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import torch
@@ -13,6 +16,31 @@ import torch
 
 def enable_nan_trap(enable: bool = True) -> None:
     torch.autograd.set_detect_anomaly(enable)
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: str, device: str = "cuda"):
+    """Profiles the region within into ``<logdir>/<worker>.<ms>.pt.trace.json``.
+
+    ``device="cuda"`` records the host and the card, and raises when
+    there is no CUDA device (it never records the host alone in its
+    place); ``device="cpu"`` records the host only."""
+    from torch.profiler import (
+        ProfilerActivity,
+        profile,
+        tensorboard_trace_handler,
+    )
+
+    activities = [ProfilerActivity.CPU]
+    if device == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("profile_trace(device='cuda'): no CUDA device")
+        activities.append(ProfilerActivity.CUDA)
+    elif device != "cpu":
+        raise ValueError(f"profile_trace: device {device!r} is not cuda or cpu")
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(logdir)):
+        yield
 
 
 class StepTimer:

@@ -42,3 +42,14 @@ class MetricsLogger:
     def __exit__(self, *exc) -> None:
         self.close()
 
+
+
+def read_scalars(path: str) -> list:
+    """A scalars.jsonl file back as a list of dicts (blank lines skipped)."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                out.append(json.loads(line))
+    return out

@@ -2,13 +2,16 @@
 
 While the card runs step N, a host thread prepares batch N+1 (ply read,
 context-aware sampling: numpy, which releases the GIL for its heavy
-ops). A bounded queue keeps memory flat.
+ops). A bounded queue keeps memory flat. ``prefetch_map`` maps a function
+over items on a thread pool, in order, a bounded number of items ahead.
 """
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
-from typing import Iterable, Iterator
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Iterable, Iterator, Sequence
 
 _STOP = object()
 
@@ -75,3 +78,26 @@ def prefetch(source: Iterable, buffer_size: int = 4) -> Iterable:
     if buffer_size <= 0:
         return source
     return PrefetchIterator(source, buffer_size)
+
+
+def prefetch_map(
+    fn: Callable, items: Sequence, num_threads: int = 2,
+    buffer_size: int = 4,
+) -> Iterable:
+    """``fn`` of each item, in order, computed by ``num_threads`` threads
+    at most ``buffer_size`` items ahead of the consumer; an exception of
+    ``fn`` is raised when its item is reached. A ``buffer_size`` below 1
+    runs one item ahead (the reference's maps nothing then)."""
+    ahead = max(1, buffer_size)
+
+    def gen():
+        with ThreadPoolExecutor(num_threads) as pool:
+            it = iter(items)
+            pending = [pool.submit(fn, x)
+                       for _, x in zip(range(ahead), it)]
+            while pending:
+                yield pending.pop(0).result()
+                for x in itertools.islice(it, 1):
+                    pending.append(pool.submit(fn, x))
+
+    return gen()

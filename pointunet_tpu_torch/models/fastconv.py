@@ -244,6 +244,11 @@ class Conv(nn.Module):
         )
 
 
+# the reference's class name (flax names the module ``Conv``, whence the
+# port's class name and its parameters' names)
+FastConv = Conv
+
+
 def _add_bias(y: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
     """``y + b`` over the channel axis, in y's type (the reference adds its
     bias after the conv)."""

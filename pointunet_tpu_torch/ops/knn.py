@@ -2,14 +2,17 @@
 
 The pyramid uses it for every level of at most ``GRID_THRESHOLD`` points.
 Distances use the explicit difference form, chunked over queries so the
-(Q, Ns) distance block stays small; the reference's matmul expansion
-exists for the TPU's matrix unit and loses precision on near ties.
+(Q, Ns, 3) difference block stays within ``BLOCK_BYTES``; the reference's
+matmul expansion (2 q.s - |q|^2 - |s|^2) exists for the TPU's matrix unit,
+loses precision on near ties and can read a self-match's d^2 slightly
+below 0, where the difference form gives exactly 0.
 """
 from __future__ import annotations
 
 import torch
 
-QUERY_BLOCK = 1024      # queries per (Q, Ns) distance block
+QUERY_BLOCK = 1024      # most queries per (Q, Ns) distance block
+BLOCK_BYTES = 1 << 28   # most bytes of a block's (Q, Ns, 3) f32 differences
 
 
 def pad_k_columns(idx: torch.Tensor, k_req: int) -> torch.Tensor:
@@ -20,6 +23,33 @@ def pad_k_columns(idx: torch.Tensor, k_req: int) -> torch.Tensor:
     if k_eff >= k_req:
         return idx
     return torch.cat([idx, idx[:, -1:].expand(-1, k_req - k_eff)], dim=1)
+
+
+def query_block(ns: int) -> int:
+    """Queries a distance block: ``QUERY_BLOCK``, fewer where the support
+    is large enough that the block's differences would pass
+    ``BLOCK_BYTES``, at least 1."""
+    return max(1, min(QUERY_BLOCK, BLOCK_BYTES // (12 * max(ns, 1))))
+
+
+def _search(support: torch.Tensor, query: torch.Tensor, k: int):
+    """(d^2 (Nq, k_eff) f32, idx (Nq, k_eff) int32), nearest first,
+    k_eff = min(k, Ns), on the inputs' device."""
+    support = support.float()
+    query = query.float()
+    k = min(k, support.shape[0])
+    block = query_block(support.shape[0])
+    d2s, idxs = [], []
+    for q0 in range(0, query.shape[0], block):
+        q = query[q0:q0 + block]
+        diff = q[:, None, :] - support[None, :, :]          # (Q, Ns, 3)
+        best = torch.topk((diff * diff).sum(-1), k, dim=1, largest=False)
+        d2s.append(best.values)
+        idxs.append(best.indices.to(torch.int32))
+    if not idxs:
+        empty = torch.zeros((0, k), device=query.device)
+        return empty, empty.to(torch.int32)
+    return torch.cat(d2s), torch.cat(idxs)
 
 
 def knn(
@@ -33,16 +63,25 @@ def knn(
     the last neighbour (``pad_k_columns``). Argument order (support first)
     matches the reference.
     """
-    support = support.float()
-    query = query.float()
-    k_req, k = k, min(k, support.shape[0])
-    out = []
-    for q0 in range(0, query.shape[0], QUERY_BLOCK):
-        q = query[q0:q0 + QUERY_BLOCK]
-        diff = q[:, None, :] - support[None, :, :]          # (Q, Ns, 3)
-        d2 = (diff * diff).sum(-1)
-        out.append(torch.topk(d2, k, dim=1, largest=False).indices)
-    if not out:
-        return torch.zeros((0, k_req), torch.int32, device=query.device)
-    idx = torch.cat(out).to(torch.int32)
-    return pad_k_columns(idx, k_req)
+    return pad_k_columns(_search(support, query, k)[1], k)
+
+
+def knn_with_distances(
+    support: torch.Tensor,       # (Ns, 3)
+    query: torch.Tensor,         # (Nq, 3)
+    k: int,
+) -> tuple:
+    """As ``knn``, with the squared distances: (idx (Nq, k) int32, d^2
+    (Nq, k) f32), nearest first; when Ns < k the trailing columns of both
+    repeat the last neighbour."""
+    d2, idx = _search(support, query, k)
+    return pad_k_columns(idx, k), pad_k_columns(d2, k)
+
+
+def knn_batch(
+    support: torch.Tensor,       # (B, Ns, 3)
+    query: torch.Tensor,         # (B, Nq, 3)
+    k: int,
+) -> torch.Tensor:
+    """``knn`` of each cloud of a batch: (B, Nq, k) int32."""
+    return torch.stack([knn(s, q, k) for s, q in zip(support, query)])

@@ -7,8 +7,9 @@ label (the lowest class on a tie).
 
 * ``grid_subsample``: host numpy with a dynamic output size, for the
   offline prep tools. The reference takes a native C++ path when one is
-  built; the port keeps this one, bit-equal to the reference's numpy
-  path (``native.grid_subsample`` is ported beside it, not taken here).
+  built; the port always runs ``grid_subsample_numpy``, bit-equal to the
+  reference's (``native.grid_subsample`` is ported beside it, not taken
+  here).
 * ``grid_subsample_fixed``: device torch with a static output budget
   (sorted-segment reductions by ``torch.unique``, ``index_add_`` and
   ``scatter_reduce``), for on-device pipelines.
@@ -32,6 +33,11 @@ def grid_subsample(points, features=None, labels=None, grid_size=0.1):
     """Barycentre grid subsampling on the host: sub_points, then
     sub_features and sub_labels when given (the reference wrapper's
     return arity)."""
+    return grid_subsample_numpy(points, features, labels, grid_size)
+
+
+def grid_subsample_numpy(points, features=None, labels=None, grid_size=0.1):
+    """``grid_subsample`` in numpy: cells in ascending id, sums in f64."""
     points = np.asarray(points, dtype=np.float32)
     ids = _cell_ids(points, grid_size)
     _, inv, counts = np.unique(ids, return_inverse=True, return_counts=True)

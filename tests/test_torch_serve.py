@@ -154,7 +154,8 @@ def test_port_imports_no_jax():
     points, both trainers, its kernels' wrappers, the Pancreas path, the
     offline prep and scoring tools, the host CLIs, the native ops, the
     checkpoint reader, the multi-device layer and the activation-sharded
-    point net; then every module of the package) nor chip_smoke.py loads
+    point net, the subpackages with their public names; then every module
+    of the package) nor chip_smoke.py loads
     JAX, any module of the JAX package (``pointunet_tpu``) or the
     exporter, which is the one file that imports both."""
     code = (
@@ -203,6 +204,12 @@ def test_port_imports_no_jax():
         "import pointunet_tpu_torch.ops.knn_sharded\n"
         "import pointunet_tpu_torch.models.randlanet\n"
         "import pointunet_tpu_torch.parallel.mesh\n"
+        # the subpackages' public names, the reference's
+        "import pointunet_tpu_torch.core, pointunet_tpu_torch.data\n"
+        "import pointunet_tpu_torch.train, pointunet_tpu_torch.pipeline\n"
+        "from pointunet_tpu_torch.ops import knn_with_distances, knn_batch\n"
+        "from pointunet_tpu_torch.core import profile_trace\n"
+        "from pointunet_tpu_torch.data.prefetch import prefetch_map\n"
         # every other module of the port, new ones included
         "import importlib, pkgutil, pointunet_tpu_torch\n"
         "for m in pkgutil.walk_packages(pointunet_tpu_torch.__path__,\n"
