@@ -4,8 +4,9 @@
 
 Drives the port's paths (``pointunet_tpu_torch``): serving, the
 ``segment`` CLI (reference-exact sliding-window path and ``--fast``),
-point-net training and saliency-net training (``train_attention``), and
+point-net training and saliency-net training (``train_attention``),
 training and serving on a mesh of ranks, at the full BraTS width, and
+the accuracy path (both nets trained, the fused path scored), and
 fails (non-zero exit, no result line) on any fault. Phases:
 
 1. build: compile the four CUDA kernels from the sources in this checkout
@@ -202,14 +203,38 @@ fails (non-zero exit, no result line) on any fault. Phases:
    both timed; (c) ``core.debug.profile_trace`` around one warm Serve
    request: its Chrome trace holds the request's CUDA kernels, kernel
    1's among them once a launch (6), and the 5 kernels that took the
-   most device time are printed.
+   most device time are printed;
+15. accuracy: ``cli/accuracy.py`` (the reference bench's accuracy
+   presets) on each dataset's reduced task, (96, 96, 64) seeded synthetic
+   volumes at 65,536 points, with the reference's 400 saliency and 800
+   point steps (the saliency net trained in f32, run in bf16 in the
+   fused path): every step's loss finite and the mean of the last 50
+   below the first; kernels 1 and 2 launched by every point step (as
+   ``knn_searches`` and ``sorted_scatters`` derive them), kernel 1 by
+   each request's pyramid and nothing else anywhere (kernel 3 not once);
+   the QDA control equal to the value the CPU test computes with
+   bench.py's own functions (``ACC_QDA``), the raw mean Dice at least
+   that + 0.3, labels in {0, 1, 2, 4} or {0, 1}; kernels 1 and 2 at
+   these shapes against their plain versions (the searches of the first
+   training cloud's pyramid, the scatters of one f32 point step on it,
+   at phases 2 and 3's bars); the evaluation again under
+   ``POINTUNET_FASTCONV=pallas`` (19 kernel-3 launches a request), its
+   labels' agreement with the default route's and the Dice difference
+   printed, the 19 convs of one request each held to kernel 3's plain
+   version at phase 6's bars and to ``F.conv3d`` (one bf16 ulp or 1e-5 x
+   max|F.conv3d|), and each held-out volume's attention masks under the
+   two routes and their labels where both clouds hold a point printed;
+   the trained f32 point net once more in bf16 on the held-out volumes'
+   clouds, the argmax agreement printed.
 
 Every path is driven with the kernels' launch counts set to 0 just before
 it and read just after. Before the last line it prints the card
 (``nvidia-smi``) and one JSON object describing the four kernels (phase
 13's results under kernel 3's ``routes`` and kernel 1's ``knn_pallas``,
 phase 14's under kernel 1's ``block64``, ``knn_plain`` and
-``profile_trace`` and kernel 2's ``block64``); the last line is
+``profile_trace`` and kernel 2's ``block64``, phase 15's under kernel 1's
+``accuracy``, its step's scatters under kernel 2's and its convs under
+kernel 3's); the last line is
 ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
 """
 from __future__ import annotations
@@ -291,6 +316,18 @@ KNN_POINTS = 16_384            # support points and queries of a cloud
 KNN_GRID = 32                  # (b)'s clouds: voxel centres of a 32^3 grid
 KNN_BATCH = 2
 TRACE_TOP_OPS = 5
+# phase 15: the accuracy path's reduced task at the reference's default
+# steps; its QDA controls, which tests/test_torch_accuracy.py computes
+# with bench.py's own functions on the same seeds (4 decimals, as the
+# line prints them); the raw mean Dice must clear them by ACC_MARGIN; the
+# mean loss of the last ACC_LOSS_TAIL steps must be below the first
+ACC_SALIENCY_STEPS = 400
+ACC_POINTSEG_STEPS = 800
+ACC_QDA = {"brats": ("gmm_baseline_dice_mean", 0.4981),
+           "pancreas": ("gmm_baseline_dice", 0.0)}
+ACC_MARGIN = 0.3
+ACC_LOSS_TAIL = 50
+ACC_REQUESTS = 3               # an evaluation: a warm-up and 2 volumes
 # the card's peaks (NVIDIA H100 SXM data sheet): device memory bytes/s,
 # f32 operations/s outside the tensor cores, bf16 on the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -405,27 +442,18 @@ def _env(name: str, value):
         put(old)
 
 
-def _kernel_modules() -> dict:
-    from pointunet_tpu_torch.ops import (
-        conv_cuda,
-        knn_cuda,
-        scatter_sorted,
-        scatter_window,
-    )
-
-    return {"knn_cell_window": knn_cuda, "scatter_sorted": scatter_sorted,
-            "conv3d_3x3": conv_cuda, "windowed_scatter": scatter_window}
-
-
 def reset_launches() -> None:
     """Every kernel wrapper's launch count set to 0."""
-    for m in _kernel_modules().values():
-        m.LAUNCHES = 0
+    from pointunet_tpu_torch.ops import launches
+
+    launches.reset_launches()
 
 
 def read_launches() -> dict:
     """{kernel name: launches since the last reset}."""
-    return {name: m.LAUNCHES for name, m in _kernel_modules().items()}
+    from pointunet_tpu_torch.ops import launches
+
+    return launches.read_launches()
 
 
 def _kernel_cloud(dev, seed=0):
@@ -1138,9 +1166,11 @@ def _want_path(bf16: bool, cin: int, cout: int, wd: int) -> str:
     return "cuda_cores"
 
 
-def _conv_case(name: str, x, w, b) -> dict:
+def _conv_case(name: str, x, w, b, library_bar: bool = False) -> dict:
     """One captured conv input through the kernel, its plain version and
-    (f32) ``F.conv3d``; the bars of phase 6, times and bound."""
+    (f32) ``F.conv3d``; the bars of phase 6, times and bound. With
+    ``library_bar``, bf16 too is held to ``F.conv3d``: one bf16 ulp or
+    1e-5 x max|F.conv3d| (both sum in f32 and round once)."""
     import torch.nn.functional as F
 
     from pointunet_tpu_torch.ops import conv_cuda
@@ -1169,6 +1199,18 @@ def _conv_case(name: str, x, w, b) -> dict:
         log(f"[conv] {name}: {n_over} of {gap.numel()} elements more than "
             f"one bf16 ulp apart (|plain| at most {over_max:.3e} there)")
         del ulp, over
+        if library_bar:
+            lib = F.conv3d(x, w, padding=1).float()
+            lib_gap = (got.float() - lib).abs()
+            lib_ulp = _bf16_ulp(torch.maximum(got.float().abs(), lib.abs()))
+            lib_scale = float(lib.abs().max())
+            checks["within one bf16 ulp or 1e-5 x max|F.conv3d|"] = bool(
+                (lib_gap <= lib_ulp.clamp(min=1e-5 * lib_scale)).all())
+            log(f"[conv] {name}: max |kernel - F.conv3d| "
+                f"{float(lib_gap.max()):.3e}, {int((lib_gap > lib_ulp).sum())}"
+                f" elements more than one bf16 ulp apart (max|F.conv3d| "
+                f"{lib_scale:.3e})")
+            del lib, lib_gap, lib_ulp
     else:
         checks["within 1e-5 x max|plain|"] = max_err <= 1e-5 * scale
         lib = F.conv3d(x, w, padding=1)
@@ -3543,6 +3585,266 @@ def phase_remaining(dev, card) -> dict:
     return out
 
 
+def _accuracy_check_launches(tag, run, steps) -> dict:
+    """Each stage's launches against what its work must launch: kernels
+    1 and 2 on every point step, kernel 1 in each request's pyramid,
+    nothing else anywhere."""
+    searches, scatters = knn_searches(run.pcfg), sorted_scatters(run.pcfg)
+    zero = {name: 0 for name in read_launches()}
+    want = {stage: dict(zero) for stage in run.launches}
+    want["pointseg_train"].update(knn_cell_window=steps * searches,
+                                  scatter_sorted=steps * scatters)
+    want["evaluate"]["knn_cell_window"] = ACC_REQUESTS * searches
+    if run.launches != want:
+        raise AssertionError(f"{tag} launches {run.launches}, want {want}")
+    return {"searches_per_pyramid": searches, "scatters_per_step": scatters}
+
+
+def _accuracy_kernels(tag, run) -> dict:
+    """Kernels 1 and 2 at the accuracy path's shapes: the searches of the
+    first training cloud's pyramid against kernel 1's plain version, and
+    the scatters of one point step on that cloud (a fresh trainer of the
+    run's config) against kernel 2's."""
+    from pointunet_tpu_torch.cli import accuracy
+    from pointunet_tpu_torch.models.randlanet import search_grid
+    from pointunet_tpu_torch.train import PointSegTrainer
+
+    cfg = run.pcfg
+    if (cfg.k_n, tuple(cfg.sub_sampling_ratio)) != (K, RATIOS):
+        raise AssertionError(f"{tag}: k {cfg.k_n}, ratios "
+                             f"{cfg.sub_sampling_ratio}")
+    cloud, = accuracy.sample_clouds(run.train_vols[:1], run.task.n_points,
+                                    run.device)
+    shapes, pyr = _search_cases(cloud.xyz, knn_searches(cfg), tag)
+    del pyr
+    trainer = PointSegTrainer(cfg, device=run.device)
+    state = trainer.init_state()
+    feats = torch.cat([cloud.xyz, cloud.features], -1)[None]
+    with _capture() as captured:
+        trainer.train_step(state, cloud.xyz[None], feats, cloud.labels[None])
+    torch.cuda.synchronize()
+    steps = _step_cases(captured, search_grid(cloud.xyz[None])[2],
+                        sorted_scatters(cfg))
+    del captured, trainer, state
+    torch.cuda.empty_cache()
+    return {"searches": shapes, "step_cases": steps}
+
+
+def _sampled(cloud, shape) -> torch.Tensor:
+    """(Z, Y, X) bool: the voxels ``cloud`` holds a point of."""
+    o = cloud.xyz_origin.long()
+    out = torch.zeros(shape, dtype=torch.bool, device=o.device)
+    out[o[:, 2], o[:, 1], o[:, 0]] = True
+    return out
+
+
+def _accuracy_pallas(tag, run, card) -> dict:
+    """The evaluation again under ``POINTUNET_FASTCONV=pallas``: kernel 3
+    on the 19 3x3x3 convs of every request, the labels against the
+    default route's; then each of the 19 convs of the first held-out
+    volume's request against kernel 3's plain version and ``F.conv3d``,
+    and, a held-out volume, the two routes' attention masks and their
+    labels where both clouds hold a point."""
+    default = run.evaluation
+    reset_launches()
+    with _env("POINTUNET_FASTCONV", "pallas"):
+        ev = run.evaluate()
+    counts = read_launches()
+    searches = knn_searches(run.pcfg)
+    want = {"knn_cell_window": ACC_REQUESTS * searches, "scatter_sorted": 0,
+            "conv3d_3x3": ACC_REQUESTS * CONVS_PER_FORWARD,
+            "windowed_scatter": 0}
+    if counts != want:
+        raise AssertionError(f"{tag} pallas evaluation launches {counts}, "
+                             f"want {want}")
+    pipe, dev = run.pipe(), run.device
+
+    def request(i, **opts):
+        mods = torch.as_tensor(run.test_vols[i][0], device=dev)
+        return pipe.segment_device(
+            mods, torch.Generator(device=dev).manual_seed(100 + i), **opts)
+
+    calls = _capture_convs(lambda _: request(0), None)
+    if len(calls) != CONVS_PER_FORWARD:
+        raise AssertionError(f"{tag}: {len(calls)} kernel-3 calls in a "
+                             f"request, want {CONVS_PER_FORWARD}")
+    convs = []
+    with torch.inference_mode():
+        for n, args in enumerate(calls):
+            convs.append(_conv_case(f"{tag} #{n}", *args, library_bar=True))
+    del calls
+    torch.cuda.empty_cache()
+    routes = []
+    for i in range(len(run.test_vols)):
+        with torch.inference_mode():
+            lab_a, mask_a, cloud_a = request(i, return_stages=True)
+            with _env("POINTUNET_FASTCONV", "pallas"):
+                lab_b, mask_b, cloud_b = request(i, return_stages=True)
+        both = _sampled(cloud_a, lab_a.shape) & _sampled(cloud_b, lab_a.shape)
+        union = int((mask_a | mask_b).sum())
+        routes.append({
+            "mask_voxels": [int(mask_a.sum()), int(mask_b.sum())],
+            "mask_voxels_differing": int((mask_a != mask_b).sum()),
+            "mask_iou": int((mask_a & mask_b).sum()) / max(union, 1),
+            "points_in_both_clouds": int(both.sum()),
+            "label_agreement_in_both": float(
+                (lab_a == lab_b)[both].float().mean()),
+        })
+        log(f"[accuracy] {tag} volume {i}, default vs pallas: attention "
+            f"masks {routes[-1]['mask_voxels']} voxels, "
+            f"{routes[-1]['mask_voxels_differing']} differing (IoU "
+            f"{routes[-1]['mask_iou']:.6f}); {routes[-1]['points_in_both_clouds']}"
+            f" voxels in both clouds, labels agreeing on "
+            f"{routes[-1]['label_agreement_in_both']:.6f} of them | {card}")
+    same = sum(int((a == b).sum()) for a, b in zip(ev.preds, default.preds))
+    total = sum(a.size for a in ev.preds)
+    either = [(a > 0) | (b > 0) for a, b in zip(ev.preds, default.preds)]
+    same_fg = sum(int(((a == b) & e).sum())
+                  for a, b, e in zip(ev.preds, default.preds, either))
+    fg = sum(int(e.sum()) for e in either)
+    dice = _mean_dice(run, ev)
+    base = _mean_dice(run, default)
+    out = {"launches": counts, "voxel_agreement": same / total,
+           "labelled_voxel_agreement": same_fg / max(fg, 1),
+           "labelled_voxels": fg, "dice": dice, "dice_default": base,
+           "dice_difference": dice - base,
+           "latency_ms": ev.latency_ms, "convs": convs, "routes": routes}
+    log(f"[accuracy] {tag} under pallas: {counts['conv3d_3x3']} kernel-3 "
+        f"launches; labels agree with the default route's on "
+        f"{out['voxel_agreement']:.6f} of voxels, "
+        f"{out['labelled_voxel_agreement']:.6f} of the {fg} labelled by "
+        f"either; mean Dice {dice:.6f} against {base:.6f} (difference "
+        f"{dice - base:+.6f}); latency ms {ev.latency_ms} | {card}")
+    return out
+
+
+def _mean_dice(run, ev) -> float:
+    s = run.score(ev)
+    if run.dataset == "brats":
+        return float(np.mean([s["dice_wt"], s["dice_tc"], s["dice_et"]]))
+    return s["dice"]
+
+
+@torch.inference_mode()
+def _accuracy_bf16(tag, run, card) -> dict:
+    """The trained f32 point net once more in bf16 on the clouds of the
+    held-out volumes (their requests' seeds and attention masks): the
+    points' argmax agreement, overall and where the f32 net labels
+    tumour."""
+    import copy
+    import dataclasses
+
+    pipe32 = run.pipe()
+    model16 = copy.deepcopy(pipe32.pointseg_model)
+    model16.config = dataclasses.replace(model16.config, use_bfloat16=True)
+    pipe16 = run.pipe()
+    pipe16.pointseg_model = model16
+    if (pipe32.pointseg_model.compute_dtype(run.device) != torch.float32
+            or model16.compute_dtype(run.device) != torch.bfloat16):
+        raise AssertionError(f"{tag}: the point nets' dtypes")
+    same = total = same_fg = fg = 0
+    for i, (mods, _) in enumerate(run.test_vols):
+        mods = torch.as_tensor(mods, device=run.device)
+
+        def gen():
+            return torch.Generator(device=run.device).manual_seed(100 + i)
+
+        l32, mask, cloud = pipe32.segment_device(mods, gen(),
+                                                 return_stages=True)
+        l16, _, cloud16 = pipe16.segment_device(mods, gen(), mask=mask,
+                                                return_stages=True)
+        if not torch.equal(cloud.xyz_origin, cloud16.xyz_origin):
+            raise AssertionError(f"{tag}: the two requests' clouds differ")
+        o = cloud.xyz_origin.long()
+        p32, p16 = (v[o[:, 2], o[:, 1], o[:, 0]] for v in (l32, l16))
+        agree = p32 == p16
+        same += int(agree.sum())
+        total += agree.numel()
+        same_fg += int((agree & (p32 > 0)).sum())
+        fg += int((p32 > 0).sum())
+    out = {"agreement": same / total, "tumour_agreement": same_fg / max(fg, 1),
+           "points": total, "tumour_points": fg}
+    log(f"[accuracy] {tag} point net bf16 vs f32 (trained): argmax agrees on "
+        f"{out['agreement']:.6f} of {total} points, {out['tumour_agreement']:.6f}"
+        f" of the {fg} the f32 net labels tumour | {card}")
+    return out
+
+
+def _accuracy_dataset(dev, card, dataset: str) -> dict:
+    """One dataset of phase 15 (see the module docstring)."""
+    from pointunet_tpu_torch.cli import accuracy
+
+    tag = f"accuracy_{dataset}"
+    args = accuracy.parse_args([
+        "--dataset", dataset, "--device", str(dev),
+        "--saliency_steps", str(ACC_SALIENCY_STEPS),
+        "--pointseg_steps", str(ACC_POINTSEG_STEPS)])
+    run_fn = (accuracy.accuracy_brats if dataset == "brats"
+              else accuracy.accuracy_pancreas)
+    reset_launches()
+    t0 = time.perf_counter()
+    line, run = run_fn(args, log=log)
+    seconds = time.perf_counter() - t0
+    counts = read_launches()
+    log(f"[accuracy] {tag} line: {json.dumps(line)}")
+    totals = {name: sum(st[name] for st in run.launches.values())
+              for name in counts}
+    if totals != counts:
+        raise AssertionError(f"{tag}: launches outside the stages "
+                             f"{counts} vs {totals}")
+    plan = _accuracy_check_launches(tag, run, ACC_POINTSEG_STEPS)
+    losses = {"saliency": run.saliency_losses,
+              "pointseg": run.pointseg_losses}
+    steps = {"saliency": ACC_SALIENCY_STEPS, "pointseg": ACC_POINTSEG_STEPS}
+    for name, ls in losses.items():
+        tail = float(np.mean(ls[-ACC_LOSS_TAIL:]))
+        log(f"[accuracy] {tag} {name} losses: first {ls[0]:.6f}, mean of "
+            f"the last {ACC_LOSS_TAIL} {tail:.6f}, last {ls[-1]:.6f}")
+        if (len(ls) != steps[name] or not np.isfinite(ls).all()
+                or not tail < ls[0]):
+            raise AssertionError(f"{tag} {name} losses do not descend")
+    key, pinned = ACC_QDA[dataset]
+    if line[key] != pinned:
+        raise AssertionError(f"{tag}: QDA control {line[key]} is not the "
+                             f"reference's {pinned}")
+    if not line["value"] >= pinned + ACC_MARGIN:
+        raise AssertionError(f"{tag}: raw mean Dice {line['value']} below "
+                             f"the QDA control {pinned} + {ACC_MARGIN}")
+    labels = set()
+    for pred in run.evaluation.preds:
+        labels |= set(np.unique(pred).tolist())
+    allowed = {0, 1, 2, 4} if dataset == "brats" else {0, 1}
+    if not labels <= allowed:
+        raise AssertionError(f"{tag}: labels {labels}")
+    log(f"[accuracy] {tag}: raw mean Dice {line['value']} (bar "
+        f"{pinned + ACC_MARGIN:.4f}), postprocessed {line['postprocessed']}, "
+        f"QDA {line[key]}, latency {line['latency_ms_median']} ms; stage s "
+        + ", ".join(f"{k} {v:.3f}" for k, v in run.seconds.items())
+        + "; peak GB "
+        + ", ".join(f"{k} {v:.3f}" for k, v in run.peak_gb.items())
+        + f"; {seconds:.1f} s | {card}")
+    out = {"line": line, "seconds": seconds, "stage_seconds": run.seconds,
+           "peak_gb": run.peak_gb, "launches": run.launches, **plan,
+           "losses": {k: {"first": float(v[0]), "last": float(v[-1]),
+                          "tail_mean": float(np.mean(v[-ACC_LOSS_TAIL:]))}
+                      for k, v in losses.items()},
+           **_accuracy_kernels(tag, run),
+           "pallas": _accuracy_pallas(tag, run, card),
+           "bf16": _accuracy_bf16(tag, run, card)}
+    del run
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_accuracy(dev, card) -> dict:
+    """Phase 15: the accuracy path (see the module docstring)."""
+    t0 = time.perf_counter()
+    out = {d: _accuracy_dataset(dev, card, d) for d in ("brats", "pancreas")}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[accuracy] phase 15 took {out['seconds']:.1f} s | {card}")
+    return out
+
+
 def _conv_summary(conv, launches, by_path) -> dict:
     """Kernel 3's entry of the ``kernels`` line: the sums over the 19
     convs of one bf16 ROI forward (the serve path's), the f32 window's
@@ -3600,6 +3902,8 @@ def main() -> int:
     routes = phase_routes(dev, card, segment_labels)
     torch.cuda.empty_cache()
     remaining = phase_remaining(dev, card)
+    torch.cuda.empty_cache()
+    accuracy = phase_accuracy(dev, card)
 
     # each path's launches, counted from 0 over its run; "launches" is
     # the count on the path that carries the kernel in this run: the
@@ -3641,6 +3945,13 @@ def main() -> int:
         # phase 14: the warm-up and timed Block64 steps, the profiled request
         "train_block64": remaining["block64"].pop("launches"),
         "serve_profiled": remaining["profile_trace"]["launches"],
+        # phase 15: each dataset's point training, its evaluation (a
+        # warm-up and 2 volumes) and the evaluation under pallas
+        **{f"accuracy_{d}_{stage}": accuracy[d]["launches"][stage]
+           for d in ("brats", "pancreas")
+           for stage in ("saliency_train", "pointseg_train", "evaluate")},
+        **{f"accuracy_{d}_evaluate_pallas": accuracy[d]["pallas"]["launches"]
+           for d in ("brats", "pancreas")},
     }
 
     def by_path(name):
@@ -3672,6 +3983,11 @@ def main() -> int:
     kernel["block64"] = remaining["block64"]
     kernel["knn_plain"] = remaining["knn_plain"]
     kernel["profile_trace"] = remaining["profile_trace"]
+    scatter["accuracy"] = {d: accuracy[d].pop("step_cases")
+                           for d in ("brats", "pancreas")}
+    conv_entry["accuracy"] = {d: accuracy[d]["pallas"].pop("convs")
+                              for d in ("brats", "pancreas")}
+    kernel["accuracy"] = accuracy
     entries = [kernel, scatter, conv_entry, window]
     for entry in entries:                  # nvcc seconds of its source
         entry["build_s"] = build_s.get(os.path.basename(entry["source"]))

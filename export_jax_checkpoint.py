@@ -1,8 +1,12 @@
 """Export the JAX package's train-state checkpoints for the PyTorch port.
 
-    python export_jax_checkpoint.py --src DIR --out DIR \
+    python export_jax_checkpoint.py (--src DIR | --init SEED) --out DIR \
         --stage {pointseg,saliency} [--dataset {brats,pancreas}] \
         [--net {attention,unet3d}] [--instance_norm | --batch_norm]
+
+``--init SEED`` writes the reference trainer's fresh ``init_state(SEED)``
+as ``<out>/0.npz`` instead: the JAX package's initial draw, which
+``probe_accuracy.py`` trains the port from.
 
 Runs on a host with JAX: ``--src`` is a directory that the JAX package's
 ``BestMetricCheckpointer`` (orbax) wrote, e.g. ``run_brats``'s
@@ -107,17 +111,17 @@ def export(src: str, out: str, template: Any, stage: str) -> Dict[str, int]:
     return {"steps": len(steps), "best": int(best is not None)}
 
 
-def template_state(args) -> Any:
-    """The reference trainer's ``init_state()`` for the flags. Parameter
-    shapes do not depend on the point count or the patch, and both
-    ``init_*`` functions init at a minimal cloud or patch."""
+def template_state(args, seed: int = 0) -> Any:
+    """The reference trainer's ``init_state(seed)`` for the flags.
+    Parameter shapes do not depend on the point count or the patch, and
+    both ``init_*`` functions init at a minimal cloud or patch."""
     from pointunet_tpu.core import config
 
     if args.stage == "pointseg":
         from pointunet_tpu.train.pointseg import PointSegTrainer
 
         cfg = getattr(config, f"{args.dataset}_pointseg_config")()
-        return PointSegTrainer(cfg).init_state()
+        return PointSegTrainer(cfg).init_state(seed)
     from pointunet_tpu.train.saliency import SaliencyTrainer
 
     cfg = getattr(config, f"{args.dataset}_saliency_config")(
@@ -125,13 +129,16 @@ def template_state(args) -> Any:
     )
     return SaliencyTrainer(
         cfg, attention=args.net == "attention"
-    ).init_state()
+    ).init_state(seed)
 
 
 def main(argv=None) -> Dict[str, int]:
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--src", type=str, required=True,
-                        help="orbax checkpoint directory of the JAX package")
+    src = parser.add_mutually_exclusive_group(required=True)
+    src.add_argument("--src", type=str,
+                     help="orbax checkpoint directory of the JAX package")
+    src.add_argument("--init", type=int,
+                     help="write the fresh init_state(INIT) as step 0")
     parser.add_argument("--out", type=str, required=True)
     parser.add_argument("--stage", choices=["pointseg", "saliency"],
                         required=True)
@@ -145,6 +152,12 @@ def main(argv=None) -> Dict[str, int]:
     norm.add_argument("--batch_norm", dest="instance_norm",
                       action="store_false")
     args = parser.parse_args(argv)
+    if args.init is not None:
+        os.makedirs(args.out, exist_ok=True)
+        _save(flatten_state(template_state(args, args.init), args.stage),
+              os.path.join(args.out, "0.npz"))
+        print(f"exported init_state({args.init}) to {args.out}/0.npz")
+        return {"steps": 1, "best": 0}
     counts = export(args.src, args.out, template_state(args), args.stage)
     print(f"exported {counts['steps']} steps"
           f"{' and the best one' if counts['best'] else ''} to {args.out}")

@@ -193,15 +193,21 @@ class FusedPointUnet:
         return scatter_labels_to_volume(labels_pt, origin[order], (z, y, x))
 
     def segment_device(
-        self, modalities: torch.Tensor, generator: torch.Generator
-    ) -> torch.Tensor:
-        """(C, X, Y, Z) tensor on the device -> (Z, Y, X) uint8 labels."""
-        mask = self._attention_mask(modalities)
+        self, modalities: torch.Tensor, generator: torch.Generator,
+        mask: torch.Tensor = None, return_stages: bool = False,
+    ):
+        """(C, X, Y, Z) tensor on the device -> (Z, Y, X) uint8 labels.
+
+        A ``mask`` (X, Y, Z) given takes the attention stage's place; with
+        ``return_stages``, (labels, the mask, the sampled cloud)."""
+        if mask is None:
+            mask = self._attention_mask(modalities)
         cloud = self._sample(modalities, mask, generator)
         pyramid = self._pyramid_fn(cloud.xyz)
-        return self._pointseg_scatter(
+        labels = self._pointseg_scatter(
             pyramid, cloud.xyz, cloud.features, cloud.xyz_origin
         )
+        return (labels, mask, cloud) if return_stages else labels
 
     def segment_batch_device(
         self,

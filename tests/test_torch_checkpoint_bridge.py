@@ -41,6 +41,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from flax import traverse_util
 
 from jax_export_util import (
     FIXTURE,
@@ -118,6 +119,32 @@ def test_export_layout(point_run):
     heads = {k.split("/")[0] for k in keys}
     assert heads == {"params", "batch_stats", "mu", "nu", "count", "step",
                      "rng"}
+
+
+def test_export_init_writes_the_fresh_state(point_run, tmp_path):
+    """``--init K`` writes the reference trainer's fresh ``init_state(K)``
+    as step 0 (``probe_accuracy.py`` trains the port from it), and the
+    port's ``load_reference`` takes it."""
+    out = tmp_path / "init"
+    export_jax_checkpoint.main(["--init", "1", "--out", str(out),
+                                "--stage", "pointseg"])
+    assert os.listdir(out) == ["0.npz"]
+    want = point_run["trainer"].init_state(seed=1)
+    with np.load(out / "0.npz") as z:
+        flat = {k: z[k] for k in z.files}
+    assert int(flat["step"]) == 0 and int(flat["count"]) == 0
+    for k, v in traverse_util.flatten_dict(want.params, sep="/").items():
+        np.testing.assert_array_equal(flat[f"params/{k}"], np.asarray(v))
+    state = PointSegTrainer(port_config.brats_pointseg_config(
+        num_points=N_POINT), device="cpu").init_state()
+    state.load_reference(flat)
+    assert state.step == 0
+    params = dict(state.model.named_parameters())
+    want_port = convert.convert_leaves(
+        {k: v for k, v in flat.items() if k.startswith("params/")}, params)
+    for name, param in params.items():
+        np.testing.assert_array_equal(param.detach().numpy(),
+                                      want_port[name].numpy())
 
 
 def test_split_state_drops_rng_and_refuses_the_rest(point_run):

@@ -154,7 +154,8 @@ def test_port_imports_no_jax():
     points, both trainers, its kernels' wrappers, the Pancreas path, the
     offline prep and scoring tools, the host CLIs, the native ops, the
     checkpoint reader, the multi-device layer and the activation-sharded
-    point net, the subpackages with their public names; then every module
+    point net, the subpackages with their public names, the accuracy path;
+    then every module
     of the package) nor chip_smoke.py loads
     JAX, any module of the JAX package (``pointunet_tpu``) or the
     exporter, which is the one file that imports both."""
@@ -210,6 +211,9 @@ def test_port_imports_no_jax():
         "from pointunet_tpu_torch.ops import knn_with_distances, knn_batch\n"
         "from pointunet_tpu_torch.core import profile_trace\n"
         "from pointunet_tpu_torch.data.prefetch import prefetch_map\n"
+        # the accuracy path and its synthetic volumes
+        "import pointunet_tpu_torch.cli.accuracy\n"
+        "import pointunet_tpu_torch.data.synthetic\n"
         # every other module of the port, new ones included
         "import importlib, pkgutil, pointunet_tpu_torch\n"
         "for m in pkgutil.walk_packages(pointunet_tpu_torch.__path__,\n"
