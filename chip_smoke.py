@@ -225,7 +225,16 @@ fails (non-zero exit, no result line) on any fault. Phases:
    max|F.conv3d|), and each held-out volume's attention masks under the
    two routes and their labels where both clouds hold a point printed;
    the trained f32 point net once more in bf16 on the held-out volumes'
-   clouds, the argmax agreement printed.
+   clouds, the argmax agreement printed; then each dataset's first
+   ``ACC_REPEAT_STEPS`` (20) saliency steps, in the stage's settings
+   (TF32 convs, ``cudnn.deterministic``), and its first 20 point steps,
+   each run twice from one state: the parameters must be bit-equal and
+   kernel 2 launch ``sorted_scatters`` (3) times a step, and the saliency
+   steps are timed once more with ``cudnn.deterministic`` off; last, a
+   BraTS point step (365,000 points, bf16) profiled in turns with its
+   gathers below kernel 2's gate summed by ``index_add_`` (as before
+   ``gather.row_sum``) and by ``row_sum``: the device busy ms of each,
+   8 kernel-2 launches a step under both.
 
 Every path is driven with the kernels' launch counts set to 0 just before
 it and read just after. Before the last line it prints the card
@@ -328,6 +337,8 @@ ACC_QDA = {"brats": ("gmm_baseline_dice_mean", 0.4981),
 ACC_MARGIN = 0.3
 ACC_LOSS_TAIL = 50
 ACC_REQUESTS = 3               # an evaluation: a warm-up and 2 volumes
+ACC_REPEAT_STEPS = 20          # steps of each net run twice from one state
+BUSY_ROUNDS = 2                # rounds of (old, new, new, old) profiled steps
 # the card's peaks (NVIDIA H100 SXM data sheet): device memory bytes/s,
 # f32 operations/s outside the tensor cores, bf16 on the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -3770,6 +3781,143 @@ def _accuracy_bf16(tag, run, card) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _index_add_sums():
+    """The gather gradients below kernel 2's gate summed as they were
+    before ``gather.row_sum``: ``index_add_`` into zeros of ct's type
+    (float atomics on CUDA). The "before" of the busy-time reading."""
+    from pointunet_tpu_torch.ops import gather, scatter_sorted
+
+    def index_add(rows, idx, n):
+        c = rows.shape[-1]
+        return torch.zeros((n, c), dtype=rows.dtype,
+                           device=rows.device).index_add_(
+            0, idx.reshape(-1).long(), rows.reshape(-1, c))
+
+    modules = (gather, scatter_sorted)
+    kept = [m.row_sum for m in modules]
+    for m in modules:
+        m.row_sum = index_add
+    try:
+        yield
+    finally:
+        for m, fn in zip(modules, kept):
+            m.row_sum = fn
+
+
+def _params_equal(a, b) -> tuple:
+    """(tensors, tensors not bit-equal) of two models' parameters."""
+    pa, pb = list(a.parameters()), list(b.parameters())
+    return len(pa), sum(not torch.equal(x, y) for x, y in zip(pa, pb))
+
+
+def _accuracy_repeat(tag, run, card) -> dict:
+    """The first ``ACC_REPEAT_STEPS`` saliency steps (in the stage's
+    settings) and point steps, each run twice from one state: the
+    parameters must be bit-equal. The saliency steps are also timed once
+    with ``cudnn.deterministic`` off; the point steps launch kernel 2
+    ``sorted_scatters`` times a step."""
+    from pointunet_tpu_torch.cli import accuracy
+    from pointunet_tpu_torch.train import PointSegTrainer
+
+    quiet = lambda *a: None  # noqa: E731
+    records = accuracy.saliency_records(run.train_vols, run.dataset)
+
+    def saliency(deterministic):
+        state = run.strainer.init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with accuracy.tf32_convs(), contextlib.ExitStack() as stack:
+            if deterministic:
+                stack.enter_context(accuracy.deterministic_convs())
+            state, _ = accuracy.train_saliency(
+                run.strainer, state, records, ACC_REPEAT_STEPS, quiet)
+            torch.cuda.synchronize()
+        return state.model, time.perf_counter() - t0
+
+    (s1, t1), (s2, t2) = saliency(True), saliency(True)
+    _, t_off = saliency(False)
+    clouds = accuracy.sample_clouds(run.train_vols, run.task.n_points,
+                                    run.device)
+    models, launches = [], []
+    for _ in range(2):
+        trainer = PointSegTrainer(run.pcfg, device=run.device)
+        state = trainer.init_state()
+        reset_launches()
+        state, _ = accuracy.train_pointseg(trainer, state, clouds,
+                                           ACC_REPEAT_STEPS, quiet)
+        torch.cuda.synchronize()
+        launches.append(read_launches()["scatter_sorted"])
+        models.append(state.model)
+    del clouds
+    out = {"saliency": _params_equal(s1, s2), "point": _params_equal(*models),
+           "saliency_seconds_deterministic": [t1, t2],
+           "saliency_seconds_cudnn_choice": t_off,
+           "point_scatter_launches": launches}
+    log(f"[accuracy] {tag} {ACC_REPEAT_STEPS} steps twice from one state: "
+        f"saliency {out['saliency'][1]} of {out['saliency'][0]} parameters "
+        f"differ, point {out['point'][1]} of {out['point'][0]}; saliency "
+        f"steps {t1:.3f} / {t2:.3f} s with cudnn.deterministic, {t_off:.3f} "
+        f"s without (the stage's {ACC_SALIENCY_STEPS} steps took "
+        f"{run.seconds['saliency_train']:.3f} s with it); kernel-2 launches "
+        f"{launches} | {card}")
+    want = ACC_REPEAT_STEPS * sorted_scatters(run.pcfg)
+    if out["saliency"][1] or out["point"][1]:
+        raise AssertionError(f"{tag}: training is not bit-reproducible: "
+                             f"{out}")
+    if launches != [want, want]:
+        raise AssertionError(f"{tag}: kernel-2 launches {launches}, want "
+                             f"{want} each")
+    return out
+
+
+def _row_sum_busy(dev, card) -> dict:
+    """Device busy ms of a BraTS point step (365,000 points, bf16), its
+    gathers below kernel 2's gate summed by ``index_add_`` (old) and by
+    ``gather.row_sum`` (new), profiled in turns (old, new, new, old) x
+    ``BUSY_ROUNDS`` after a warm-up of each; kernel 2 launches
+    ``SCATTERS_PER_STEP`` times a step under both."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pointunet_tpu_torch.cli.profile_request import _busy_ms
+    from pointunet_tpu_torch.cli.profile_train import synthetic_cloud
+    from pointunet_tpu_torch.core.config import brats_pointseg_config
+    from pointunet_tpu_torch.train import PointSegTrainer
+
+    trainer = PointSegTrainer(brats_pointseg_config(num_points=N_POINTS),
+                              device=dev)
+    state = trainer.init_state()
+    xyz, feats, labels = synthetic_cloud(dev, N_POINTS, seed=5)
+
+    def step(old: bool):
+        with _index_add_sums() if old else contextlib.nullcontext():
+            reset_launches()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                trainer.train_step(state, xyz, feats, labels)
+                torch.cuda.synchronize()
+            launches = read_launches()["scatter_sorted"]
+        if launches != SCATTERS_PER_STEP:
+            raise AssertionError(f"busy step: {launches} kernel-2 launches")
+        return _busy_ms(prof)
+
+    step(True), step(False)
+    busy = {"old": [], "new": []}
+    for _ in range(BUSY_ROUNDS):
+        for old in (True, False, False, True):
+            busy["old" if old else "new"].append(step(old))
+    mean = {k: float(np.mean(v)) for k, v in busy.items()}
+    out = {"busy_ms": busy, "mean_ms": mean,
+           "added_ms": mean["new"] - mean["old"]}
+    log(f"[accuracy] BraTS point step (365,000 points, bf16) device busy "
+        f"ms, gathers below the gate on index_add_ {busy['old']} (mean "
+        f"{mean['old']:.3f}), on row_sum {busy['new']} (mean "
+        f"{mean['new']:.3f}): {out['added_ms']:+.3f} ms | {card}")
+    del trainer, state
+    torch.cuda.empty_cache()
+    return out
+
+
 def _accuracy_dataset(dev, card, dataset: str) -> dict:
     """One dataset of phase 15 (see the module docstring)."""
     from pointunet_tpu_torch.cli import accuracy
@@ -3829,6 +3977,7 @@ def _accuracy_dataset(dev, card, dataset: str) -> dict:
                           "tail_mean": float(np.mean(v[-ACC_LOSS_TAIL:]))}
                       for k, v in losses.items()},
            **_accuracy_kernels(tag, run),
+           "repeat": _accuracy_repeat(tag, run, card),
            "pallas": _accuracy_pallas(tag, run, card),
            "bf16": _accuracy_bf16(tag, run, card)}
     del run
@@ -3840,6 +3989,7 @@ def phase_accuracy(dev, card) -> dict:
     """Phase 15: the accuracy path (see the module docstring)."""
     t0 = time.perf_counter()
     out = {d: _accuracy_dataset(dev, card, d) for d in ("brats", "pancreas")}
+    out["row_sum_busy"] = _row_sum_busy(dev, card)
     out["seconds"] = time.perf_counter() - t0
     log(f"[accuracy] phase 15 took {out['seconds']:.1f} s | {card}")
     return out

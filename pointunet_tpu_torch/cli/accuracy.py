@@ -5,6 +5,7 @@
     python -m pointunet_tpu_torch.cli.accuracy --dataset brats|pancreas \
         [--saliency_steps 400] [--pointseg_steps 800] [--acc_full] \
         [--acc_bf16] [--saliency_bf16] [--sa_stride S] [--att_downscale S] \
+        [--seed N] [--saliency_init DIR] [--pointseg_init DIR] \
         [--device cuda|cpu]
 
 Trains both nets on 4 synthetic volumes (``data/synthetic.py``, drawn
@@ -22,16 +23,17 @@ voxel intensities: what no spatial context can beat). Step by step:
    Pancreas (256, 256, 160), 180,000 points, no ROI;
 2. the saliency net, batch 1 at lr 0.01 on ``patch_batches`` from
    ``default_rng(1)`` ("one_positive"), trained in f32 (on the card
-   with cuDNN's default TF32 convs), as the reference trains it on any
-   backend but a TPU; ``--saliency_bf16`` trains it in bf16 on the card,
-   the reference's recipe on its TPU, which loses Dice on CUDA (ROADMAP
-   queue 3);
+   with cuDNN's default TF32 convs and its deterministic algorithms), as
+   the reference trains it on any backend but a TPU; ``--saliency_bf16``
+   trains it in bf16 on the card, the reference's recipe on its TPU,
+   which loses Dice on CUDA (ROADMAP queue 3);
 3. one cloud a training volume, sampled on the device around its true
    tumour mask by ``sample_cloud_device`` from a generator seeded with
    its index;
 4. the point net on the clouds in turn (BraTS at lr 1e-3, Pancreas at its
    config's), f32 unless ``--acc_bf16`` (bf16 then on the card only, as
    the reference's is on its accelerator only);
+
 5. the fused path (threshold 0.5; the saliency net in bf16 on the card,
    as the port serves it, in f32 on the CPU, whatever type trained it):
    one warm-up request (seed 99), then
@@ -42,6 +44,13 @@ voxel intensities: what no spatial context can beat). Step by step:
    with the gate at stride s; ``--att_downscale`` s > 1 evaluates with
    the attention at 1/s resolution, once with the mask dilated by s and
    once with a boundary band of 4.
+
+Both nets start from the port's initialisation drawn from ``--seed``
+(0), or from a train state of the JAX package exported by ``python
+export_jax_checkpoint.py --init K --stage saliency|pointseg --out DIR``
+(``--saliency_init DIR``, ``--pointseg_init DIR``). Training is
+bit-reproducible on the card: the same flags give the same weights and
+the same Dice on every run.
 
 Prints the reference's one-line JSON, plus ``card`` (``nvidia-smi``'s
 name and power limit; null on the CPU) and ``launches`` (each CUDA
@@ -66,6 +75,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.checkpoint import BestMetricCheckpointer
 from ..core.config import (
     TrainConfig,
     brats_pointseg_config,
@@ -172,6 +182,19 @@ def tf32_convs():
         yield
     finally:
         torch.backends.cudnn.allow_tf32 = old
+
+
+@contextlib.contextmanager
+def deterministic_convs():
+    """cuDNN's deterministic algorithms within (``cudnn.deterministic``),
+    as they were after: with cuDNN's own choice, two runs of the
+    saliency stage from one state end in other weights."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
 
 
 def sample_clouds(vols, n_points: int, device) -> List[DeviceCloud]:
@@ -462,6 +485,16 @@ def _log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
+def initial_state(trainer, seed: int, directory: Optional[str] = None):
+    """The trainer's state drawn from ``seed``, or restored from an
+    exported JAX train state in ``directory``."""
+    state = trainer.init_state(seed)
+    if directory is not None:
+        if BestMetricCheckpointer(directory).restore_latest(state) is None:
+            raise FileNotFoundError(f"accuracy: no train state in {directory}")
+    return state
+
+
 def train(dataset: str, args, task: Optional[Task] = None,
           log: Callable = _log) -> Run:
     """Steps 1-4 of the module docstring: the volumes and both nets
@@ -486,11 +519,11 @@ def train(dataset: str, args, task: Optional[Task] = None,
     train_cfg = dataclasses.replace(
         scfg, use_bfloat16=bool(args.saliency_bf16) and on_card)
     strainer = SaliencyTrainer(train_cfg, TrainConfig(), device=dev)
-    sstate = strainer.init_state()
+    sstate = initial_state(strainer, args.seed, args.saliency_init)
     log("[accuracy] saliency net trained in "
         f"{'bf16' if train_cfg.use_bfloat16 else 'f32'}, run in "
         f"{'bf16' if scfg.use_bfloat16 else 'f32'} in the fused path")
-    with stage("saliency_train"), tf32_convs():
+    with stage("saliency_train"), tf32_convs(), deterministic_convs():
         sstate, s_losses = train_saliency(
             strainer, sstate, saliency_records(train_vols, dataset),
             args.saliency_steps, log)
@@ -504,7 +537,7 @@ def train(dataset: str, args, task: Optional[Task] = None,
         pcfg = pancreas_pointseg_config(num_points=task.n_points,
                                         use_bfloat16=point_bf16)
     ptrainer = PointSegTrainer(pcfg, TrainConfig(), device=dev)
-    pstate = ptrainer.init_state()
+    pstate = initial_state(ptrainer, args.seed, args.pointseg_init)
     with stage("clouds"):
         clouds = sample_clouds(train_vols, task.n_points, dev)
     with stage("pointseg_train"):
@@ -671,6 +704,14 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                    help="also evaluate with the gate at this stride")
     p.add_argument("--att_downscale", type=int, default=None,
                    help="also evaluate with attention at 1/s resolution")
+    p.add_argument("--seed", type=int, default=0,
+                   help="the seed of both nets' initialisation")
+    p.add_argument("--saliency_init", default=None,
+                   help="start the saliency net from an exported JAX "
+                   "train state in this directory")
+    p.add_argument("--pointseg_init", default=None,
+                   help="start the point net from an exported JAX train "
+                   "state in this directory")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 

@@ -12,10 +12,13 @@ keep-mask drawn from the caller's ``torch.Generator``. While autograd is
 on, every K-neighbour feature gather of the encoder (the two in each
 ``LocalFeatureAggregation`` and the pool gather) goes through
 ``ops.scatter_sorted.sorted_gather``, whose backward runs the sorted
-scatter kernel (kernel 2) on the large levels; it needs the level-0
-search grid, which is computed only then. The xyz gathers need no
-gradient and the up-sample's gradient is ``index_add_``, as in the
-reference.
+scatter kernel (kernel 2) on the large levels and ``ops.gather.row_sum``
+on the others; it needs the level-0 search grid, which is computed only
+then. The xyz gathers need no gradient; the up-sample's gather
+(``ops.gather.RowGather``) takes ``row_sum`` too, where the reference's
+is XLA's scatter. ``row_sum`` adds each row's terms in a fixed order in
+f32, and kernel 2 has no atomics either, so a train step gives the same
+bits on every run.
 
 With a ``point_group`` (a mesh's point axis), rank p computes only slab
 p of every level's cell-sorted rows (``ops/pyramid_sharded.py:
@@ -47,7 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.config import PointSegConfig
-from ..ops.gather import encode_neighbor_xyz, gather_neighbour
+from ..ops.gather import RowGather, encode_neighbor_xyz, gather_neighbour
 from ..ops.knn_window import _grid_resolution
 from ..ops.pyramid import Pyramid
 from ..ops.pyramid_sharded import slab_sizes
@@ -195,8 +198,10 @@ def _max_pool(feature, pool_idx, xyz, sub_xyz, grid) -> torch.Tensor:
 
 
 def _interp(feature: torch.Tensor, interp_idx: torch.Tensor) -> torch.Tensor:
-    """(B, M, d), (B, N, 1) -> (B, N, d): nearest-neighbour up-sample."""
-    return _gather(feature, interp_idx)[:, :, 0]
+    """(B, M, d), (B, N, 1) -> (B, N, d): nearest-neighbour up-sample,
+    its gradient summed by ``row_sum``."""
+    return torch.stack([RowGather.apply(t, i[:, 0])
+                        for t, i in zip(feature, interp_idx)])
 
 
 class RandLANet(FlaxNamed):

@@ -22,8 +22,10 @@ f32:
 grid; for a pool gather (``query_sorted=False``) it sorts the queries'
 cells and indices and passes the permutation, through which the kernel
 reads ct in place (no sorted copy of ct). ``sorted_gather`` is the row
-gather whose backward runs it above the size gate and ``index_add_``
-below it, as the reference runs XLA's scatter there. Indices that did
+gather whose backward runs it above the size gate and, below it, where
+the reference runs XLA's scatter, ``gather.row_sum``: a stable sort of
+the indices and one f32 sum a row in that order, so that the gradient
+has the same bits on every run, as the kernel's has. Indices that did
 not come from the windowed search (levels at or below ``GRID_THRESHOLD``
 points, searched brute force) may lie outside the 27 cells: the gate
 keeps them off the planned path.
@@ -36,7 +38,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import cuda_build
-from .gather import gather_neighbour
+from .gather import gather_neighbour, row_sum
 from .knn_cuda import cell_prefix_sums
 from .pyramid import GRID_THRESHOLD
 
@@ -250,7 +252,8 @@ def scatter_add_sorted(
 class SortedGather(torch.autograd.Function):
     """``table[idx]`` whose backward runs the sorted scatter above the
     size gate (``idx.numel() >= MIN_ROWS`` and ``Ns > GRID_THRESHOLD``)
-    and ``index_add_`` below it."""
+    and ``gather.row_sum`` below it, both summing in f32 in a fixed
+    order and casting once to ct's type."""
 
     @staticmethod
     def forward(ctx, table, idx, support_xyz, query_xyz, lo, span, r0,
@@ -269,10 +272,7 @@ class SortedGather(torch.autograd.Function):
                 query_sorted,
             ).to(ct.dtype)
         else:
-            c = ct.shape[-1]
-            grad = torch.zeros(
-                (n_support, c), dtype=ct.dtype, device=ct.device
-            ).index_add_(0, idx.reshape(-1).long(), ct.reshape(-1, c))
+            grad = row_sum(ct, idx, n_support).to(ct.dtype)
         return grad, None, None, None, None, None, None, None, None
 
 

@@ -26,8 +26,9 @@ windows bit for bit (``_plan``) and does not widen them.
 * ``windowed_scatter_add`` plans, sums and unsorts: the (Ns, C) gradient.
 * ``windowed_gather`` is the row gather whose backward runs it on CUDA
   tensors when ``POINTUNET_WINDOWED_SCATTER=1``, ``idx.numel() >=
-  MIN_ROWS`` and the cotangent is (Nq, K, C), and ``index_add_``
-  otherwise, as the reference's custom VJP does. The model does not call
+  MIN_ROWS`` and the cotangent is (Nq, K, C), and otherwise
+  ``gather.row_sum`` (an f32 sum a row in a fixed order), where the
+  reference's custom VJP runs XLA's scatter. The model does not call
   it (the reference's neither): the sorted pyramid's gathers use
   ``ops/scatter_sorted.py``.
 
@@ -50,7 +51,7 @@ from typing import NamedTuple
 import torch
 
 from . import cuda_build
-from .gather import gather_neighbour
+from .gather import gather_neighbour, row_sum
 from .knn_cuda import cell_prefix_sums
 from .knn_window import _grid_resolution, _round_up
 from .scatter_sorted import window_passes
@@ -274,7 +275,7 @@ def windowed_scatter_add(
 class WindowedGather(torch.autograd.Function):
     """``table[idx]`` whose backward runs the windowed scatter on CUDA
     tensors when ``POINTUNET_WINDOWED_SCATTER=1`` and ``idx.numel() >=
-    MIN_ROWS``, and ``index_add_`` otherwise."""
+    MIN_ROWS``, and ``gather.row_sum`` otherwise."""
 
     @staticmethod
     def forward(ctx, table, idx, support_xyz, query_xyz):
@@ -292,10 +293,7 @@ class WindowedGather(torch.autograd.Function):
                 ct, idx, support_xyz, query_xyz, n
             ).to(ct.dtype)
         else:
-            c = ct.shape[-1]
-            grad = torch.zeros(
-                (n, c), dtype=ct.dtype, device=ct.device
-            ).index_add_(0, idx.reshape(-1).long(), ct.reshape(-1, c))
+            grad = row_sum(ct, idx, n).to(ct.dtype)
         return grad, None, None, None
 
 

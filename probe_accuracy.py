@@ -34,7 +34,6 @@ import argparse
 import contextlib
 import dataclasses
 import json
-import os
 import subprocess
 import sys
 import time
@@ -46,10 +45,6 @@ from pointunet_tpu_torch.cli import accuracy
 from pointunet_tpu_torch.train.metrics import binary_dice
 from pointunet_tpu_torch.train.pointseg import PointSegTrainer
 from pointunet_tpu_torch.train.saliency import SaliencyTrainer
-
-
-def _load_reference(state, directory: str) -> None:
-    state.load_reference(dict(np.load(os.path.join(directory, "0.npz"))))
 
 
 @contextlib.contextmanager
@@ -146,9 +141,7 @@ def main(argv=None) -> dict:
     for name, seed, directory in starts:
         t0 = time.perf_counter()
         trainer = PointSegTrainer(run.pcfg, device=run.device)
-        state = trainer.init_state(seed)
-        if directory is not None:
-            _load_reference(state, directory)
+        state = accuracy.initial_state(trainer, seed, directory)
         state, losses = accuracy.train_pointseg(
             trainer, state, clouds, 800, log=lambda *a: None)
         run.ptrainer, run.pstate = trainer, state
@@ -176,10 +169,8 @@ def main(argv=None) -> dict:
             run.scfg = dataclasses.replace(
                 run.scfg, use_bfloat16=dtype == "bf16")
             run.strainer = SaliencyTrainer(run.scfg, device=run.device)
-            state = run.strainer.init_state()
-            if directory is not None:
-                _load_reference(state, directory)
-            with _full_f32(dtype == "f32"):
+            state = accuracy.initial_state(run.strainer, 0, directory)
+            with _full_f32(dtype == "f32"), accuracy.deterministic_convs():
                 state, losses = accuracy.train_saliency(
                     run.strainer, state, records, 400, log=_progress)
                 run.sstate = state

@@ -7,15 +7,20 @@ attention: the point net's own Dice).
     python3 probe_accuracy_runs.py [RUN ...]
 
 A RUN is ``dataset[:flag,flag...]``, the flags those of ``cli/accuracy.py``
-without their dashes, e.g. ``brats:saliency_bf16 brats brats pancreas``
-(the default: the saliency net trained bf16, then twice f32, on the
-reduced BraTS task, then the reduced Pancreas task). Where the fused
+without their dashes, a value after ``=``, e.g. ``brats:saliency_bf16
+brats brats pancreas`` (the default: the saliency net trained bf16, then
+twice f32, on the reduced BraTS task, then the reduced Pancreas task) or
+``brats:acc_full,seed=1`` or ``pancreas:acc_full,saliency_init=DIR,
+pointseg_init=DIR`` (the JAX package's initial draws, exported by
+``export_jax_checkpoint.py --init 0``). The runs of one process share
+each task's volumes, made once. Where the fused
 path runs the saliency net in another type than it was trained in, the
 run is also scored in the training type (``fused_eval_as_trained``).
 Prints the card's name and power limit, then a ``DIAG`` JSON line a run.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -35,7 +40,10 @@ def _log(msg: str) -> None:
 
 def one_run(spec: str) -> dict:
     dataset, _, flags = spec.partition(":")
-    extra = [f"--{f}" for f in flags.split(",") if f]
+    extra = []
+    for flag in filter(None, flags.split(",")):
+        name, eq, value = flag.partition("=")
+        extra += [f"--{name}"] + ([value] if eq else [])
     t0 = time.perf_counter()
     args = accuracy.parse_args(["--dataset", dataset] + extra)
     fn = (accuracy.accuracy_brats if dataset == "brats"
@@ -63,6 +71,8 @@ def main(argv=None) -> None:
     runs = (sys.argv[1:] if argv is None else argv) or DEFAULT_RUNS
     if not torch.cuda.is_available():
         raise SystemExit("probe_accuracy_runs: no CUDA device")
+    accuracy.make_volumes = functools.lru_cache(maxsize=2)(
+        accuracy.make_volumes)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
