@@ -60,9 +60,11 @@ class SpatialAttention3D(FlaxNamed):
 
 
 class ChannelWiseAttention3D(FlaxNamed):
-    """GAP -> dense(C/4, relu) -> dense(C, sigmoid) -> multiply. The dense
-    layers run in at least f32 (f32 for bf16 input), as in the reference.
-    The mean runs over every axis after C."""
+    """GAP -> dense(C/4, relu) -> dense(C, sigmoid) -> multiply, in the
+    reference's types: the mean is summed in f32 and rounded to the
+    input's type (``jnp.mean``), the dense layers run in at least f32, and
+    the product is the promoted type (f32 for a bf16 input: the next
+    conv rounds it once). The mean runs over every axis after C."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -71,10 +73,10 @@ class ChannelWiseAttention3D(FlaxNamed):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         spatial = tuple(range(2, x.ndim))
-        att = x.mean(dim=spatial,                              # (B, C)
-                     dtype=torch.promote_types(x.dtype, torch.float32))
-        att = torch.sigmoid(self.fc2(F.relu(self.fc1(att))))
-        return x * att.to(x.dtype)[(...,) + (None,) * len(spatial)]
+        f32 = torch.promote_types(x.dtype, torch.float32)
+        att = x.mean(dim=spatial, dtype=f32).to(x.dtype)       # (B, C)
+        att = torch.sigmoid(self.fc2(F.relu(self.fc1(att.to(f32)))))
+        return x * att[(...,) + (None,) * len(spatial)]
 
 
 class SpatialAttention2D(FlaxNamed):

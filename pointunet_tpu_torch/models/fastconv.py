@@ -238,10 +238,12 @@ class Conv(nn.Module):
         else:
             x = F.pad(x, [p for lo_hi in reversed(pads) for p in lo_hi])
             padding = 0
-        return F.conv3d(
-            x, w, b, stride=self.strides, padding=padding,
+        # the bias added after the conv's rounding, as the reference adds it
+        # (CPU convs would fuse it into their f32 sums)
+        return _add_bias(F.conv3d(
+            x, w, stride=self.strides, padding=padding,
             dilation=self.dilation,
-        )
+        ), b)
 
 
 # the reference's class name (flax names the module ``Conv``, whence the

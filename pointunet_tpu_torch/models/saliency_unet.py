@@ -42,6 +42,16 @@ def _avg_pool(x: torch.Tensor, s: int) -> torch.Tensor:
     return x.reshape(b, c, d, s, h, s, w, s).mean(dim=(3, 5, 7))
 
 
+def strided_gate(sa: nn.Module, x: torch.Tensor, stride: int,
+                 run) -> torch.Tensor:
+    """The spatial attention gate at ``stride`` > 1: ``run(sa, .)`` (the
+    gate's convs, broadcast off) on the stride^3-pooled input, its
+    1-channel gate resized back to x's (D, H, W) trilinearly."""
+    gate = run(sa, _avg_pool(x, stride))
+    return F.interpolate(gate, size=x.shape[2:], mode="trilinear",
+                         align_corners=False)
+
+
 def _remat(enable: bool, module: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """``module(x)``; with ``enable`` and autograd recording, its
     activations are recomputed in the backward (``checkpoint``)."""
@@ -261,13 +271,8 @@ class SaliencyUNet(FlaxNamed):
         if self.sa is not None:
             s = cfg.sa_gate_stride
             if s > 1:
-                # gate convs on a pooled input, the 1-channel gate resized
-                # back (broadcasts over C in the multiply below)
-                sa = run(self.sa, _avg_pool(c345, s))
-                sa = F.interpolate(
-                    sa, size=c345.shape[2:], mode="trilinear",
-                    align_corners=False,
-                )
+                # (broadcasts over C in the multiply below)
+                sa = strided_gate(self.sa, c345, s, run)
             else:
                 sa = run(self.sa, c345)
 

@@ -53,6 +53,7 @@ def one_run(spec: str) -> dict:
            "post": line["postprocessed"],
            "qda": line.get("gmm_baseline_dice_mean",
                            line.get("gmm_baseline_dice")),
+           "saliency_final_loss": line["saliency_final_loss"],
            "sal_loss_last50": float(run.saliency_losses[-50:].mean()),
            "pt_loss_last50": float(run.pointseg_losses[-50:].mean()),
            "stage_s": run.seconds, "peak": run.peak_gb}

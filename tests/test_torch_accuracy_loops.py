@@ -253,20 +253,30 @@ def _rel_l2(a: dict, b: dict) -> float:
 def test_bf16_saliency_gradient_is_rounding_bound():
     """With ``--saliency_bf16`` the accuracy path trains the saliency net
     in bf16 on the card, as the reference trains it on its TPU (f32 is the
-    default). From the reference's draw the port's fused Dice at the
-    contract is 0.076 below the reference's with the bf16 saliency net
-    and 0.037 below with the same net trained in f32 (PERF.md §6; ROADMAP
-    queue 3). What that shows here: at
-    init, one bf16 step's gradient is far from the f32 one on both sides
-    (|g_bf16 - g_f32| / |g_f32| 0.54 for the reference, 0.68 for the
-    port at base_filter 4, 0.94 and 0.96 at 16: measured), so 400 bf16
-    steps follow the card's rounding, not the f32 gradient; in f32 the
-    port's gradient is the reference's (4.5e-4). The port's bf16 is held
-    to within 2x the reference's bf16 distance from f32."""
-    batch = _batch(np.random.default_rng(7), b=1)
-    ref32, port32 = _saliency_gradients(False, batch)
-    ref16, port16 = _saliency_gradients(True, batch)
+    default). At init, one bf16 step's gradient is far from the f32 one on
+    both sides, so 400 bf16 steps follow the rounding, not the f32
+    gradient; in f32 the port's gradient is the reference's (4.0e-5
+    here). The weights are the reference's threefry draw (JAX's default,
+    ``probe_bf16_gap.py``'s; the suite draws with rbg), where the
+    reference's own bf16 gradient lies nearest its f32 one. Measured at
+    base_filter 4 under the suite's XLA flags, |g_bf16 - g_f32| /
+    |g_f32| of the reference / of the port / the bf16 gradients' distance
+    |g_port - g_ref| / |g_ref|: 0.5356 / 0.5776 / 0.3710; the port
+    before its norms rounded where flax's do (commit 2d792ac,
+    tests/test_torch_bf16_rounding.py): 0.6781 / 0.3978. Held: the
+    port's gap within 1.15x the reference's (measured 1.078x, the
+    parent's 1.266x), the bf16 gradients within 0.39 of each other (the
+    parent's 0.3978)."""
+    prng = jax.config.jax_default_prng_impl
+    jax.config.update("jax_default_prng_impl", "threefry2x32")
+    try:
+        batch = _batch(np.random.default_rng(7), b=1)
+        ref32, port32 = _saliency_gradients(False, batch)
+        ref16, port16 = _saliency_gradients(True, batch)
+    finally:
+        jax.config.update("jax_default_prng_impl", prng)
     assert _rel_l2(port32, ref32) < 2e-3
     ref_gap, port_gap = _rel_l2(ref16, ref32), _rel_l2(port16, port32)
     assert ref_gap > 0.3 and port_gap > 0.3, (ref_gap, port_gap)
-    assert port_gap < 2 * ref_gap, (ref_gap, port_gap)
+    assert port_gap < 1.15 * ref_gap, (ref_gap, port_gap)
+    assert _rel_l2(port16, ref16) < 0.39
