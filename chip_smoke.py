@@ -226,15 +226,17 @@ fails (non-zero exit, no result line) on any fault. Phases:
    two routes and their labels where both clouds hold a point printed;
    the trained f32 point net once more in bf16 on the held-out volumes'
    clouds, the argmax agreement printed; then each dataset's first
-   ``ACC_REPEAT_STEPS`` (20) saliency steps, in the stage's settings
-   (TF32 convs, ``cudnn.deterministic``), and its first 20 point steps,
+   ``ACC_REPEAT_STEPS`` (5) saliency steps, in the stage's settings
+   (TF32 convs, ``cudnn.deterministic``), and its first 5 point steps,
    each run twice from one state: the parameters must be bit-equal and
-   kernel 2 launch ``sorted_scatters`` (3) times a step, and the saliency
-   steps are timed once more with ``cudnn.deterministic`` off; last, a
-   BraTS point step (365,000 points, bf16) profiled in turns with its
-   gathers below kernel 2's gate summed by ``index_add_`` (as before
-   ``gather.row_sum``) and by ``row_sum``: the device busy ms of each,
-   8 kernel-2 launches a step under both.
+   kernel 2 launch ``sorted_scatters`` (3) times a step; last, a BraTS
+   point step (365,000 points, bf16) profiled in turns (old, new, new,
+   old) with its gathers below kernel 2's gate summed by ``index_add_``
+   (as before ``gather.row_sum``) and by ``row_sum``: the device busy ms
+   of each, 8 kernel-2 launches a step under both.
+
+Each phase prints its seconds (``[time]`` lines, and all of them on one
+line after phase 15).
 
 Every path is driven with the kernels' launch counts set to 0 just before
 it and read just after. Before the last line it prints the card
@@ -337,8 +339,8 @@ ACC_QDA = {"brats": ("gmm_baseline_dice_mean", 0.4981),
 ACC_MARGIN = 0.3
 ACC_LOSS_TAIL = 50
 ACC_REQUESTS = 3               # an evaluation: a warm-up and 2 volumes
-ACC_REPEAT_STEPS = 20          # steps of each net run twice from one state
-BUSY_ROUNDS = 2                # rounds of (old, new, new, old) profiled steps
+ACC_REPEAT_STEPS = 5           # steps of each net run twice from one state
+BUSY_ROUNDS = 1                # rounds of (old, new, new, old) profiled steps
 # the card's peaks (NVIDIA H100 SXM data sheet): device memory bytes/s,
 # f32 operations/s outside the tensor cores, bf16 on the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -3814,8 +3816,7 @@ def _params_equal(a, b) -> tuple:
 def _accuracy_repeat(tag, run, card) -> dict:
     """The first ``ACC_REPEAT_STEPS`` saliency steps (in the stage's
     settings) and point steps, each run twice from one state: the
-    parameters must be bit-equal. The saliency steps are also timed once
-    with ``cudnn.deterministic`` off; the point steps launch kernel 2
+    parameters must be bit-equal; the point steps launch kernel 2
     ``sorted_scatters`` times a step."""
     from pointunet_tpu_torch.cli import accuracy
     from pointunet_tpu_torch.train import PointSegTrainer
@@ -3823,20 +3824,17 @@ def _accuracy_repeat(tag, run, card) -> dict:
     quiet = lambda *a: None  # noqa: E731
     records = accuracy.saliency_records(run.train_vols, run.dataset)
 
-    def saliency(deterministic):
+    def saliency():
         state = run.strainer.init_state()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with accuracy.tf32_convs(), contextlib.ExitStack() as stack:
-            if deterministic:
-                stack.enter_context(accuracy.deterministic_convs())
+        with accuracy.tf32_convs(), accuracy.deterministic_convs():
             state, _ = accuracy.train_saliency(
                 run.strainer, state, records, ACC_REPEAT_STEPS, quiet)
             torch.cuda.synchronize()
         return state.model, time.perf_counter() - t0
 
-    (s1, t1), (s2, t2) = saliency(True), saliency(True)
-    _, t_off = saliency(False)
+    (s1, t1), (s2, t2) = saliency(), saliency()
     clouds = accuracy.sample_clouds(run.train_vols, run.task.n_points,
                                     run.device)
     models, launches = [], []
@@ -3851,15 +3849,13 @@ def _accuracy_repeat(tag, run, card) -> dict:
         models.append(state.model)
     del clouds
     out = {"saliency": _params_equal(s1, s2), "point": _params_equal(*models),
-           "saliency_seconds_deterministic": [t1, t2],
-           "saliency_seconds_cudnn_choice": t_off,
+           "saliency_seconds": [t1, t2],
            "point_scatter_launches": launches}
     log(f"[accuracy] {tag} {ACC_REPEAT_STEPS} steps twice from one state: "
         f"saliency {out['saliency'][1]} of {out['saliency'][0]} parameters "
         f"differ, point {out['point'][1]} of {out['point'][0]}; saliency "
-        f"steps {t1:.3f} / {t2:.3f} s with cudnn.deterministic, {t_off:.3f} "
-        f"s without (the stage's {ACC_SALIENCY_STEPS} steps took "
-        f"{run.seconds['saliency_train']:.3f} s with it); kernel-2 launches "
+        f"steps {t1:.3f} / {t2:.3f} s (the stage's {ACC_SALIENCY_STEPS} "
+        f"took {run.seconds['saliency_train']:.3f} s); kernel-2 launches "
         f"{launches} | {card}")
     want = ACC_REPEAT_STEPS * sorted_scatters(run.pcfg)
     if out["saliency"][1] or out["point"][1]:
@@ -3975,11 +3971,21 @@ def _accuracy_dataset(dev, card, dataset: str) -> dict:
            "peak_gb": run.peak_gb, "launches": run.launches, **plan,
            "losses": {k: {"first": float(v[0]), "last": float(v[-1]),
                           "tail_mean": float(np.mean(v[-ACC_LOSS_TAIL:]))}
-                      for k, v in losses.items()},
-           **_accuracy_kernels(tag, run),
-           "repeat": _accuracy_repeat(tag, run, card),
-           "pallas": _accuracy_pallas(tag, run, card),
-           "bf16": _accuracy_bf16(tag, run, card)}
+                      for k, v in losses.items()}}
+    checks = {}
+
+    def timed(name, fn, *args):
+        t1 = time.perf_counter()
+        got = fn(*args)
+        checks[name] = round(time.perf_counter() - t1, 1)
+        return got
+
+    out.update(timed("kernels", _accuracy_kernels, tag, run))
+    for name, fn in (("repeat", _accuracy_repeat),
+                     ("pallas", _accuracy_pallas), ("bf16", _accuracy_bf16)):
+        out[name] = timed(name, fn, tag, run, card)
+    log(f"[time] {tag}: the run {seconds:.1f} s, then (s) "
+        f"{json.dumps(checks)}")
     del run
     torch.cuda.empty_cache()
     return out
@@ -3989,7 +3995,9 @@ def phase_accuracy(dev, card) -> dict:
     """Phase 15: the accuracy path (see the module docstring)."""
     t0 = time.perf_counter()
     out = {d: _accuracy_dataset(dev, card, d) for d in ("brats", "pancreas")}
+    t1 = time.perf_counter()
     out["row_sum_busy"] = _row_sum_busy(dev, card)
+    log(f"[time] row_sum_busy took {time.perf_counter() - t1:.1f} s")
     out["seconds"] = time.perf_counter() - t0
     log(f"[accuracy] phase 15 took {out['seconds']:.1f} s | {card}")
     return out
@@ -4030,30 +4038,43 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
-    card, build_s = phase_build()
-    kernel, pyr = phase_kernel(dev)
-    bars = phase_scatter(dev, pyr)
-    window, gather_counts = phase_window(dev, pyr)
+    t_smoke = time.perf_counter()
+    seconds = {}
+
+    def phase(n: int, name: str, fn, *args):
+        """Run phase ``n`` and print its seconds."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[f"{n} {name}"] = round(time.perf_counter() - t0, 1)
+        log(f"[time] phase {n} ({name}) took {seconds[f'{n} {name}']} s")
+        return out
+
+    card, build_s = phase(1, "build", phase_build)
+    kernel, pyr = phase(2, "kernel", phase_kernel, dev)
+    bars = phase(3, "scatter", phase_scatter, dev, pyr)
+    window, gather_counts = phase(4, "window", phase_window, dev, pyr)
     del pyr
     torch.cuda.empty_cache()
-    serve, pipe, mods = phase_serve(dev)
-    conv = phase_conv(dev, pipe, mods)
+    serve, pipe, mods = phase(5, "serve", phase_serve, dev)
+    conv = phase(6, "conv", phase_conv, dev, pipe, mods)
     del pipe, mods
     torch.cuda.empty_cache()
-    segment, segment_labels = phase_segment(dev)
-    train = phase_train(dev)
-    saliency = phase_saliency(dev)
-    pancreas = phase_pancreas(dev)
+    segment, segment_labels = phase(7, "segment", phase_segment, dev)
+    train = phase(8, "train", phase_train, dev)
+    saliency = phase(9, "saliency", phase_saliency, dev)
+    pancreas = phase(10, "pancreas", phase_pancreas, dev)
     torch.cuda.empty_cache()
-    bridge = phase_bridge(dev)
+    bridge = phase(11, "bridge", phase_bridge, dev)
     torch.cuda.empty_cache()
-    mesh = phase_mesh(dev)
+    mesh = phase(12, "mesh", phase_mesh, dev)
     torch.cuda.empty_cache()
-    routes = phase_routes(dev, card, segment_labels)
+    routes = phase(13, "routes", phase_routes, dev, card, segment_labels)
     torch.cuda.empty_cache()
-    remaining = phase_remaining(dev, card)
+    remaining = phase(14, "remaining", phase_remaining, dev, card)
     torch.cuda.empty_cache()
-    accuracy = phase_accuracy(dev, card)
+    accuracy = phase(15, "accuracy", phase_accuracy, dev, card)
+    log(f"[time] phases (s): {json.dumps(seconds)}; all "
+        f"{time.perf_counter() - t_smoke:.1f} s | {card}")
 
     # each path's launches, counted from 0 over its run; "launches" is
     # the count on the path that carries the kernel in this run: the

@@ -25,8 +25,9 @@ voxel intensities: what no spatial context can beat). Step by step:
    ``default_rng(1)`` ("one_positive"), trained in f32 (on the card
    with cuDNN's default TF32 convs and its deterministic algorithms), as
    the reference trains it on any backend but a TPU; ``--saliency_bf16``
-   trains it in bf16 on the card, the reference's recipe on its TPU,
-   which loses Dice on CUDA (ROADMAP queue 3);
+   trains it in bf16 on the card, the reference's recipe on its TPU
+   (over the reference's draws neither recipe is ahead: ROADMAP
+   queue 3);
 3. one cloud a training volume, sampled on the device around its true
    tumour mask by ``sample_cloud_device`` from a generator seeded with
    its index;
