@@ -42,10 +42,10 @@ fails (non-zero exit, no result line) on any fault. Phases:
    ``pointunet_tpu_torch.cli.serve`` (ROI 192x208x155, 365,000 points,
    bf16). Each must yield a (240, 240, 155) uint8 label volume with
    values in {0, 1, 2, 4}, at most 365,000 labelled voxels, and exactly 6
-   KNN kernel launches; then time each stage with CUDA events, and again
-   with ``POINTUNET_FASTCONV=pallas``: one request must launch the conv
-   kernel exactly 19 times, and its attention mask must agree with the
-   cuDNN route's on >= 0.999 of the ROI's voxels;
+   KNN kernel launches; then time each stage by the tracer's device
+   spans, and again with ``POINTUNET_FASTCONV=pallas``: one request must
+   launch the conv kernel exactly 19 times, and its attention mask must
+   agree with the cuDNN route's on >= 0.999 of the ROI's voxels;
 6. conv: the inputs of the 19 eligible convs of one saliency forward, in
    bf16 at the serve ROI (1,4,160,208,192) and in f32 on one
    (1,4,64,160,160) window, through the conv kernel and its plain
@@ -1044,7 +1044,7 @@ def phase_serve(dev):
             latencies.append(rec["latency_s"])
 
         # stage split of one request on the pipeline that served them,
-        # each stage timed by CUDA events
+        # each stage's device span in the tracer's record
         mods = torch.from_numpy(np.ascontiguousarray(
             load_brats_volume(find_brats_cases(inbox)[0])
         )).to(dev)
@@ -1100,30 +1100,24 @@ def _roi_slices(pipe, mods):
 
 
 def _stage_split(pipe, mods) -> dict:
+    """Device ms of the four stages of ``segment_device``, mean of 3 warm
+    requests, read from the tracer's ``serve`` record of each."""
+    from pointunet_tpu_torch.core import trace
+
     gen = torch.Generator(device=mods.device)
-    totals = dict.fromkeys(
-        ("attention", "sampling", "pyramid", "pointseg_scatter"), 0.0
-    )
+    spans = {"attention": "serve.attention", "sampling": "serve.sampling",
+             "pyramid": "serve.pyramid", "pointseg_scatter": "serve.pointseg"}
+    totals = dict.fromkeys(spans, 0.0)
     repeats = 3
     with torch.inference_mode():
         for rep in range(repeats + 1):
             gen.manual_seed(0)
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-            ev[0].record()
-            mask = pipe._attention_mask(mods)
-            ev[1].record()
-            cloud = pipe._sample(mods, mask, gen)
-            ev[2].record()
-            pyr = pipe._pyramid_fn(cloud.xyz)
-            ev[3].record()
-            pipe._pointseg_scatter(
-                pyr, cloud.xyz, cloud.features, cloud.xyz_origin
-            )
-            ev[4].record()
+            pipe.segment_device(mods, gen)
             torch.cuda.synchronize()
             if rep:                                 # rep 0 warms up
-                for i, name in enumerate(totals):
-                    totals[name] += ev[i].elapsed_time(ev[i + 1]) / repeats
+                rec = trace.records()[-1]
+                for name, span in spans.items():
+                    totals[name] += trace.span_ms(rec, span, "device") / repeats
     return totals
 
 
@@ -1543,31 +1537,37 @@ def _self_device_ms(entry) -> float:
 
 
 def _timed_saliency_step(trainer, state, batch):
-    """One ``train_step``, split by CUDA events recorded at its marks:
-    (loss, {part: ms, summed over the micro-batches; "step": ms from
-    before ``prepare`` to the end of the optimizer})."""
-    start = torch.cuda.Event(enable_timing=True)
-    marks = []
+    """One ``train_step``: (loss, {part: ms}): "forward_loss" and
+    "backward" (summed over the micro-batches) and "optimizer" from the
+    device spans of its tracer record, "prepare" and "step" (from before
+    ``prepare`` to the end of the optimizer) from CUDA events recorded at
+    its marks."""
+    from pointunet_tpu_torch.core import trace
+
+    events = {}
 
     def mark(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev))
+        if name in ("prepare", "optimizer"):
+            events[name] = torch.cuda.Event(enable_timing=True)
+            events[name].record()
 
+    start = torch.cuda.Event(enable_timing=True)
     start.record()
     _, m = trainer.train_step(state, *batch, mark=mark)
     torch.cuda.synchronize()
-    split, prev = {}, start
-    for name, ev in marks:
-        split[name] = split.get(name, 0.0) + prev.elapsed_time(ev)
-        prev = ev
-    split["step"] = start.elapsed_time(marks[-1][1])
+    rec = trace.records()[-1]
+    split = {"prepare": start.elapsed_time(events["prepare"])}
+    for part, name in (("forward_loss", "train.forward_loss"),
+                       ("backward", "train.backward"),
+                       ("optimizer", "train.update")):
+        split[part] = trace.span_ms(rec, name, "device")
+    split["step"] = start.elapsed_time(events["optimizer"])
     return m["loss"], split
 
 
 def _saliency_steps(cfg, batch) -> dict:
     """SALIENCY_STEPS updates of a fresh ``SaliencyTrainer`` on one batch,
-    each ``train_step`` split by CUDA events at its marks (step 0 is a
+    each ``train_step`` split as ``_timed_saliency_step`` does (step 0 is a
     warm-up), and one more ``train_step`` under ``torch.profiler``.
     Losses, the mean split of steps 1-9, their peak memory, and the
     profiled step's wall, device busy time and top ops by self device

@@ -1,0 +1,15 @@
+"""Device ms of a point-net train step's Adam update: the program's own
+span ``train.update`` (CUDA events around ``PointSegTrainer.apply_update``
+in ``train_core``), read from its tracer
+(``pointunet_tpu_torch.core.trace``), mean over the window's steps (its
+last ``train_point`` records that no profiler saw). None where the
+program has no tracer or the step ran off the card."""
+
+
+def read(run):
+    try:
+        from pointunet_tpu_torch.core import trace
+    except ImportError:
+        return None
+    return trace.window_mean("train_point", len(run.get("rows") or ()),
+                             lambda r: trace.span_ms(r, "train.update", "device"))

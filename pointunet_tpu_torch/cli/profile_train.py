@@ -8,8 +8,10 @@ random weights, seed 0) and a synthetic cloud made on the card from a
 seed (an all-voxel tumour ball of a 240x240x155 volume plus random
 background voxels, labelled by tumour shell), and prints:
 
-1. the step split of warm steps by CUDA events: pyramid, forward,
-   backward, optimizer, and the host-clock wall of the step;
+1. the step split of warm steps by the tracer's device spans (pyramid,
+   forward, backward, optimizer) and the host-clock wall of the step; the
+   gather backwards a step (the tracer's counter ``gather_backward``) and
+   their device ms where the step timed them (span ``gather.backward``);
 2. under ``torch.profiler`` over ``--steps`` steps: the wall and device
    busy share per step, the peak device memory of one step, the ops that
    hold the most device time, and the gather-backward share: device time
@@ -29,12 +31,15 @@ import time
 
 import torch
 
+from ..core import trace
 from ..core.config import brats_pointseg_config
+from ..ops import scatter_sorted
 from ..train.pointseg import PointSegTrainer, TrainState
 from .profile_request import _busy_ms
 
 VOLUME = (240, 240, 155)
-SPLIT = ("pyramid", "forward", "backward", "optimizer")
+SPLIT = {"pyramid": "train.pyramid", "forward": "train.forward_loss",
+         "backward": "train.backward", "optimizer": "train.update"}
 
 
 def synthetic_cloud(dev, n_point: int, seed: int = 0):
@@ -66,26 +71,19 @@ def synthetic_cloud(dev, n_point: int, seed: int = 0):
 
 def timed_step(trainer: PointSegTrainer, state: TrainState, xyz, feats,
                labels):
-    """One ``train_step`` on device tensors, split by CUDA events into
-    the pyramid, the forward and loss, the backward and the optimizer:
-    (metrics, {stage: ms}). The metrics hold the global batch's loss
-    (summed over a mesh), the accuracy and ``peak_gb``: this process's
-    (under a mesh, this rank's) peak device memory since the caller last
-    reset it (``torch.cuda.reset_peak_memory_stats``)."""
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(SPLIT) + 1)]
-    ev[0].record()
-    pyramid = trainer.pyramid_fn(xyz)
-    ev[1].record()
-    loss, acc = trainer.forward_loss(state, pyramid, feats, labels)
-    ev[2].record()
-    loss.backward()
-    ev[3].record()
-    trainer.apply_update(state)
-    ev[4].record()
+    """One ``train_step`` on device tensors, split into the pyramid, the
+    forward and loss, the backward and the optimizer by the device spans
+    of its tracer record: (metrics, {stage: ms}). The metrics hold the
+    global batch's loss (summed over a mesh), the accuracy and
+    ``peak_gb``: this process's (under a mesh, this rank's) peak device
+    memory since the caller last reset it
+    (``torch.cuda.reset_peak_memory_stats``)."""
+    _, m = trainer.train_step(state, xyz, feats, labels)
     torch.cuda.synchronize()
-    split = {name: ev[i].elapsed_time(ev[i + 1]) for i, name in enumerate(SPLIT)}
-    return {"loss": trainer.mesh_sum(loss), "acc": acc.detach(),
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}, split
+    rec = trace.records()[-1]
+    split = {name: trace.span_ms(rec, span, "device")
+             for name, span in SPLIT.items()}
+    return dict(m, peak_gb=torch.cuda.max_memory_allocated() / 1e9), split
 
 
 def _device_ms(entry) -> float:
@@ -130,8 +128,16 @@ def main(argv=None) -> dict:
         split["wall"] = (time.perf_counter() - t0) * 1e3
         splits.append(split)
     mean = {k: sum(s[k] for s in splits) / len(splits) for k in splits[0]}
-    print("[1] step split (ms, CUDA events; wall on the host clock), mean of "
-          f"{len(splits)}: " + ", ".join(f"{k} {v:.3f}" for k, v in mean.items()),
+    print("[1] step split (ms, the tracer's device spans; wall on the host "
+          f"clock), mean of {len(splits)}: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in mean.items()), flush=True)
+    recs = trace.records()[-args.steps:]
+    gathers = {"calls": [r["counters"].get("gather_backward", 0) for r in recs],
+               "device_ms": [ms for ms in (trace.span_ms(r, "gather.backward", "device")
+                                           for r in recs) if ms is not None]}
+    print(f"[1] gather backwards a step (the tracer's counter): "
+          f"{gathers['calls']}; their device ms in the steps that timed them "
+          f"(one of {scatter_sorted.TIMED_EVERY}): {gathers['device_ms']}",
           flush=True)
 
     torch.cuda.synchronize()
@@ -167,7 +173,7 @@ def main(argv=None) -> dict:
         with open(os.path.join(args.out, "train_ops.txt"), "w") as f:
             f.write(ka.table(sort_by="cuda_time_total", row_limit=-1))
         prof.export_chrome_trace(os.path.join(args.out, "train_trace.json"))
-    return {"split_ms": mean, "wall_ms": wall, "busy_ms": busy,
+    return {"split_ms": mean, "gather_backward": gathers, "wall_ms": wall, "busy_ms": busy,
             "peak_gb": peak, "sorted_gather_bwd_ms": sorted_bwd,
             "index_select_bwd_ms": select_bwd, "kernel2_ms": kernel2}
 

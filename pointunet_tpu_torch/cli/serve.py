@@ -3,8 +3,12 @@
 
 The process builds the models once, then polls an inbox for new cases
 and writes ``<case>.nii.gz`` labels plus a ``<case>.json`` latency record
-to the outbox. Cases already in the outbox are skipped, so the service
-is restart-safe. The inbox holds, by ``--dataset``:
+to the outbox: ``latency_s`` (the host clock around
+``segment_volume``), ``split_ms`` (each span of the request's tracer
+record, ``core/trace.py``: the stages' device ms on the card, the host's
+ms for the copies, the wait and the relabel) and ``host_syncs`` (the
+request's blocking reads of the device). Cases already in the outbox
+are skipped, so the service is restart-safe. The inbox holds, by ``--dataset``:
 
 * ``brats`` (default): BraTS-layout case folders
   (``<case>/<case>_{t1ce,t1,flair,t2}.nii.gz``, as
@@ -38,6 +42,7 @@ import traceback
 
 import numpy as np
 
+from ..core import trace
 from ..data import nifti
 from ..data.loader import (
     find_brats_cases,
@@ -51,13 +56,16 @@ from .segment import build_pipeline
 def _serve_case(fast_pipe, case, mods, outbox, brats_labels):
     out_nii = os.path.join(outbox, case + ".nii.gz")
     out_rec = os.path.join(outbox, case + ".json")
-    t0 = time.time()
+    t0 = time.perf_counter()
     labels = fast_pipe.segment_volume(mods, brats_labels=brats_labels)
-    latency = time.time() - t0
+    latency = time.perf_counter() - t0
+    rec = trace.records()[-1]
     nifti.save(labels.astype(np.uint8), out_nii)
     with open(out_rec, "w") as f:
         json.dump(
             {"case": case, "latency_s": round(latency, 3),
+             "split_ms": {k: round(v, 3) for k, v in trace.split_ms(rec).items()},
+             "host_syncs": rec["counters"].get("host_sync", 0),
              "labels": out_nii, "voxels": int((labels > 0).sum())},
             f,
         )

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..core import trace
 from ..core.config import SaliencyConfig
 from .attention3d import ChannelWiseAttention3D, SpatialAttention3D
 from .fastconv import Conv, _nearest_upsample
@@ -194,15 +195,18 @@ class _Encoder(FlaxNamed):
 
     def forward(self, x: torch.Tensor):
         remat = self.config.remat and self.training
-        x = _remat(remat, self.init, x)
+        with trace.annotate("saliency.encoder.init"):
+            x = _remat(remat, self.init, x)
         down = []
-        for match, block, strided in self.stages:
-            if match is not None:
-                x = _remat(remat, match, x)
-            x = _remat(remat, block, x)
+        for i, (match, block, strided) in enumerate(self.stages):
+            with trace.annotate(f"saliency.encoder.block{i}"):
+                if match is not None:
+                    x = _remat(remat, match, x)
+                x = _remat(remat, block, x)
             down.append(x)
             if strided is not None:
-                x = _remat(remat, strided, x)
+                with trace.annotate(f"saliency.encoder.down{i}"):
+                    x = _remat(remat, strided, x)
         return down
 
 
@@ -251,37 +255,48 @@ class SaliencyUNet(FlaxNamed):
         self.child("Conv", Conv(128, cfg.num_class, 3, dtype=dt), "head")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """While a profiler runs, each child module's call is a range
+        ``saliency.<name>`` (``core.trace.annotate``; the encoder's stages
+        ``saliency.encoder.<part>``), which places its kernels."""
         cfg = self.config
         remat = cfg.remat and self.training
 
-        def run(module, h):
-            return _remat(remat, module, h)
+        def run(module, h, name=None):
+            if name is None:
+                return _remat(remat, module, h)
+            with trace.annotate(f"saliency.{name}"):
+                return _remat(remat, module, h)
 
-        down = self.encoder(x)
-        c1 = run(self.c1, down[0])
-        c2 = run(self.c2, down[1])
-        c3, c4, c5 = (run(cfe, d) for cfe, d in zip(self.cfe, down[2:5]))
-        c5 = run(self.up_c5, c5)
-        c4 = run(self.up_c4, c4)
+        with trace.annotate("saliency.encoder"):
+            down = self.encoder(x)
+        c1 = run(self.c1, down[0], "c1")
+        c2 = run(self.c2, down[1], "c2")
+        c3, c4, c5 = (run(cfe, d, f"cfe_c{i}")
+                      for i, (cfe, d) in enumerate(zip(self.cfe, down[2:5]), 3))
+        c5 = run(self.up_c5, c5, "up_c5")
+        c4 = run(self.up_c4, c4, "up_c4")
         c345 = torch.cat([c3, c4, c5], dim=1)
         if self.ca is not None:
-            c345 = self.ca(c345)
-        c345 = run(self.up_c345, run(self.c345, c345))
+            with trace.annotate("saliency.ca"):
+                c345 = self.ca(c345)
+        c345 = run(self.up_c345, run(self.c345, c345, "c345"), "up_c345")
 
         if self.sa is not None:
             s = cfg.sa_gate_stride
-            if s > 1:
-                # (broadcasts over C in the multiply below)
-                sa = strided_gate(self.sa, c345, s, run)
-            else:
-                sa = run(self.sa, c345)
+            with trace.annotate("saliency.sa"):
+                if s > 1:
+                    # (broadcasts over C in the multiply below)
+                    sa = strided_gate(self.sa, c345, s, run)
+                else:
+                    sa = run(self.sa, c345)
 
-        c2 = run(self.up_c2, c2)
-        c12 = run(self.c12, torch.cat([c1, c2], dim=1))
+        c2 = run(self.up_c2, c2, "up_c2")
+        c12 = run(self.c12, torch.cat([c1, c2], dim=1), "c12")
         if self.sa is not None:
             c12 = sa.to(c12.dtype) * c12
         fea = torch.cat([c12, c345], dim=1)
-        return self.head(fea).float()
+        with trace.annotate("saliency.head"):
+            return self.head(fea).float()
 
 
 class UNet3D(FlaxNamed):

@@ -39,6 +39,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from ..core import trace
 from . import cuda_build
 from .knn import pad_k_columns
 from .knn_window import _grid_resolution
@@ -71,6 +72,7 @@ def cell_prefix_sums(ids_sorted: torch.Tensor, r: int) -> torch.Tensor:
     """(r^3 + 1,) int32 ``cell_start``: rows of cell c are
     ``cell_start[c] .. cell_start[c + 1]`` of the id-sorted cloud."""
     counts = torch.bincount(ids_sorted.long(), minlength=r * r * r)
+    trace.count("host_sync", 2)          # bincount reads the ids' min and max
     out = torch.zeros(r * r * r + 1, dtype=torch.int32, device=ids_sorted.device)
     out[1:] = torch.cumsum(counts, 0).to(torch.int32)
     return out

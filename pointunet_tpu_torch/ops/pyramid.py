@@ -26,6 +26,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..core import trace
 from .knn import knn
 from .knn_cuda import cell_prefix_sums, knn_cell_window
 from .knn_window import _grid_resolution
@@ -127,6 +128,7 @@ def build_pyramid(
         # decimation: original row < n_sub; cur_ord is a permutation, so
         # exactly n_sub rows, kept in this level's sort order
         idx_rel = torch.nonzero(cur_ord < n_sub).squeeze(1)
+        trace.count("host_sync")         # nonzero reads its size back
         sub_x = cur_x[idx_rel]
         sub_c3 = cur_c3[idx_rel]
         xyzs.append(cur_x)

@@ -18,6 +18,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..core import trace
+
 
 class DeviceCloud(NamedTuple):
     xyz: torch.Tensor          # (N, 3) f32, coords / dims
@@ -56,6 +58,7 @@ def sample_cloud_device(
     zi = rem % z
     origin = torch.stack([xi, yi, zi], dim=-1).to(torch.int32)
     dims = torch.tensor([x, y, z], dtype=torch.float32, device=dev)
+    trace.count("host_sync")             # the list's copy to the device
     xyz = origin.float() / dims
 
     feats = flat_mods[sel]

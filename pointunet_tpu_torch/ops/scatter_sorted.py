@@ -37,6 +37,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core import trace
 from . import cuda_build
 from .gather import gather_neighbour, row_sum
 from .knn_cuda import cell_prefix_sums
@@ -51,6 +52,8 @@ S_TILE = 128             # support rows a tile (the kernel's kTile, the
 # lower it, but only for indices from the windowed search
 MIN_ROWS = 262_144
 PLAIN_ROWS = 1 << 24     # scanned flat rows a pass of the plain version
+TIMED_EVERY = 4          # the tracer records the backward's span in one
+                         # record of every TIMED_EVERY
 SOURCE = cuda_build.CSRC / "scatter_sorted.cu"
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -253,7 +256,11 @@ class SortedGather(torch.autograd.Function):
     """``table[idx]`` whose backward runs the sorted scatter above the
     size gate (``idx.numel() >= MIN_ROWS`` and ``Ns > GRID_THRESHOLD``)
     and ``gather.row_sum`` below it, both summing in f32 in a fixed
-    order and casting once to ct's type."""
+    order and casting once to ct's type. Each backward adds one to the
+    tracer's counter ``gather_backward``; in one record of every
+    ``TIMED_EVERY`` it is also a device span ``gather.backward`` (a BraTS
+    step has 15, whose event pairs in every step would nearly double the
+    tracer's host time a step)."""
 
     @staticmethod
     def forward(ctx, table, idx, support_xyz, query_xyz, lo, span, r0,
@@ -266,13 +273,16 @@ class SortedGather(torch.autograd.Function):
     def backward(ctx, ct):
         idx, support_xyz, query_xyz, lo, span = ctx.saved_tensors
         n_support, r0, level, query_sorted = ctx.meta
-        if idx.numel() >= MIN_ROWS and n_support > GRID_THRESHOLD:
-            grad = scatter_add_sorted(
-                ct, idx, support_xyz, query_xyz, lo, span, r0, level,
-                query_sorted,
-            ).to(ct.dtype)
-        else:
-            grad = row_sum(ct, idx, n_support).to(ct.dtype)
+        trace.count("gather_backward")
+        with trace.span("gather.backward", device=ct.is_cuda,
+                        every=TIMED_EVERY):
+            if idx.numel() >= MIN_ROWS and n_support > GRID_THRESHOLD:
+                grad = scatter_add_sorted(
+                    ct, idx, support_xyz, query_xyz, lo, span, r0, level,
+                    query_sorted,
+                ).to(ct.dtype)
+            else:
+                grad = row_sum(ct, idx, n_support).to(ct.dtype)
         return grad, None, None, None, None, None, None, None, None
 
 

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core import trace
 from ..core.config import PointSegConfig, SaliencyConfig
 from ..ops.pyramid import build_pyramid_batch
 from ..ops.sampling import sample_cloud_device
@@ -42,6 +43,7 @@ def _roi_start(present: torch.Tensor, size: int, r: int) -> int:
     idx = torch.arange(size, device=present.device)
     first = int(torch.where(present, idx, size).min())
     last = int(torch.where(present, idx, -1).max())
+    trace.count("host_sync", 2)          # first and last read back
     center = (first + last + 1) // 2
     return min(max(center - r // 2, 0), max(size - r, 0))
 
@@ -199,14 +201,21 @@ class FusedPointUnet:
         """(C, X, Y, Z) tensor on the device -> (Z, Y, X) uint8 labels.
 
         A ``mask`` (X, Y, Z) given takes the attention stage's place; with
-        ``return_stages``, (labels, the mask, the sampled cloud)."""
-        if mask is None:
-            mask = self._attention_mask(modalities)
-        cloud = self._sample(modalities, mask, generator)
-        pyramid = self._pyramid_fn(cloud.xyz)
-        labels = self._pointseg_scatter(
-            pyramid, cloud.xyz, cloud.features, cloud.xyz_origin
-        )
+        ``return_stages``, (labels, the mask, the sampled cloud). Each stage
+        is a device span of the tracer's ``serve`` record (``core/trace.py``)."""
+        cuda = modalities.device.type == "cuda"
+        with trace.request("serve"):
+            if mask is None:
+                with trace.span("serve.attention", device=cuda):
+                    mask = self._attention_mask(modalities)
+            with trace.span("serve.sampling", device=cuda):
+                cloud = self._sample(modalities, mask, generator)
+            with trace.span("serve.pyramid", device=cuda):
+                pyramid = self._pyramid_fn(cloud.xyz)
+            with trace.span("serve.pointseg", device=cuda):
+                labels = self._pointseg_scatter(
+                    pyramid, cloud.xyz, cloud.features, cloud.xyz_origin
+                )
         return (labels, mask, cloud) if return_stages else labels
 
     def segment_batch_device(
@@ -256,13 +265,31 @@ class FusedPointUnet:
         self, modalities: np.ndarray, seed: int = 0, brats_labels: bool = True,
     ) -> np.ndarray:
         """(C, X, Y, Z) numpy -> (X, Y, Z) uint8 labels; with
-        ``brats_labels`` in BraTS values (class 3 is written as 4)."""
-        mods = torch.as_tensor(
-            np.asarray(modalities, np.float32), device=self.device
-        )
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        labels = self.segment_device(mods, gen).cpu().numpy()
-        labels = np.transpose(labels, (2, 1, 0)).copy()
-        if brats_labels:
-            labels[labels == 3] = 4
+        ``brats_labels`` in BraTS values (class 3 is written as 4).
+
+        One ``serve`` record of the tracer: the host spans
+        ``serve.copy_in`` (the volume to the device), ``serve.wait`` (the
+        host waiting for the device's last stage), ``serve.copy_out`` (the
+        labels to the host) and ``serve.relabel`` (their transpose and
+        relabel) around ``segment_device``'s stage spans."""
+        cuda = self.device.type == "cuda"
+        with trace.request("serve"):
+            with trace.span("serve.copy_in"):
+                mods = torch.as_tensor(
+                    np.asarray(modalities, np.float32), device=self.device
+                )
+                trace.count("host_sync")
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            labels = self.segment_device(mods, gen)
+            with trace.span("serve.wait"):
+                if cuda:
+                    torch.cuda.current_stream(self.device).synchronize()
+                    trace.count("host_sync")
+            with trace.span("serve.copy_out"):
+                labels = labels.cpu().numpy()
+                trace.count("host_sync")
+            with trace.span("serve.relabel"):
+                labels = np.transpose(labels, (2, 1, 0)).copy()
+                if brats_labels:
+                    labels[labels == 3] = 4
         return labels

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..core import trace
 from ..core.config import PointSegConfig, TrainConfig
 from ..models.losses import weighted_cross_entropy_terms
 from ..models.randlanet import RandLANet, init_randlanet
@@ -240,19 +241,30 @@ class PointSegTrainer:
     def train_core(self, state: TrainState, pyramid: Pyramid, feats, labels):
         """Forward, loss, backward and Adam update on a built pyramid;
         the gradients stay in the parameters' ``.grad``. The loss is the
-        global batch's."""
-        loss, acc = self.forward_loss(state, pyramid, feats, labels)
-        loss.backward()
-        self.apply_update(state)
+        global batch's. A ``train_point`` record of the tracer, with the
+        device spans ``train.forward_loss``, ``train.backward`` and
+        ``train.update`` (``core/trace.py``)."""
+        cuda = self.device.type == "cuda"
+        with trace.request("train_point"):
+            with trace.span("train.forward_loss", device=cuda):
+                loss, acc = self.forward_loss(state, pyramid, feats, labels)
+            with trace.span("train.backward", device=cuda):
+                loss.backward()
+            with trace.span("train.update", device=cuda):
+                self.apply_update(state)
         return state, {"loss": self.mesh_sum(loss), "acc": acc.detach()}
 
     def train_step(self, state: TrainState, xyz, feats, labels):
-        xyz = self._tensor(xyz, torch.float32)
-        pyramid = self.pyramid_fn(xyz)
-        return self.train_core(
-            state, pyramid, self._tensor(feats, torch.float32),
-            self._tensor(labels, torch.long),
-        )
+        """One step from a cloud: the pyramid (device span
+        ``train.pyramid``), then ``train_core``, in one record."""
+        with trace.request("train_point"):
+            xyz = self._tensor(xyz, torch.float32)
+            with trace.span("train.pyramid", device=self.device.type == "cuda"):
+                pyramid = self.pyramid_fn(xyz)
+            return self.train_core(
+                state, pyramid, self._tensor(feats, torch.float32),
+                self._tensor(labels, torch.long),
+            )
 
     def eval_step(self, state: TrainState, xyz, feats, labels=None):
         """Softmax probabilities (B, N, C) in the caller's row order (of

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core import trace
 from ..core.config import SaliencyConfig, TrainConfig
 from ..models.fastconv import Conv
 from ..models.losses import saliency_dice_loss, saliency_dice_loss_mixup
@@ -202,23 +203,32 @@ class SaliencyTrainer:
         given, is called with the name of each part as the host finishes
         queueing it: "prepare", then "forward_loss" and "backward" for each
         micro-batch, then "optimizer" (``chip_smoke.py`` records a CUDA
-        event at each to split the step)."""
+        event at each to split the step). The same parts are device spans
+        of a ``train_saliency`` record of the tracer (``core/trace.py``):
+        ``train.forward_loss`` and ``train.backward`` a micro-batch, then
+        ``train.update``."""
         mark = mark or (lambda name: None)
-        images, weights, labels = self.prepare(images, weights, labels)
-        mark("prepare")
-        state.optimizer.zero_grad(set_to_none=True)
-        b = images.shape[0]
-        total = torch.zeros((), device=self.device)
-        for i in range(b):
-            loss = self.forward_loss(state, images[i:i + 1],
-                                     weights[i:i + 1], labels[i:i + 1])
-            mark("forward_loss")
-            loss.backward()
-            mark("backward")
-            total += loss.detach()
-        self.apply_update(state, b)
-        mark("optimizer")
-        return state, {"loss": float(total / b)}
+        cuda = self.device.type == "cuda"
+        with trace.request("train_saliency"):
+            images, weights, labels = self.prepare(images, weights, labels)
+            mark("prepare")
+            state.optimizer.zero_grad(set_to_none=True)
+            b = images.shape[0]
+            total = torch.zeros((), device=self.device)
+            for i in range(b):
+                with trace.span("train.forward_loss", device=cuda):
+                    loss = self.forward_loss(state, images[i:i + 1],
+                                             weights[i:i + 1], labels[i:i + 1])
+                mark("forward_loss")
+                with trace.span("train.backward", device=cuda):
+                    loss.backward()
+                mark("backward")
+                total += loss.detach()
+            with trace.span("train.update", device=cuda):
+                self.apply_update(state, b)
+            mark("optimizer")
+            trace.count("host_sync")          # the loss read back below
+            return state, {"loss": float(total / b)}
 
     @torch.inference_mode()
     def predict_patch(self, state: SaliencyTrainState, images) -> torch.Tensor:

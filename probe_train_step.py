@@ -10,9 +10,9 @@ old new new old``). In each process, for the BraTS config at 365,000
 points and the Pancreas config (``pancreas_pointseg_config``) at 180,000:
 random weights from seed 0, the cloud of ``profile_train.synthetic_cloud``
 (features cut to xyz and the config's channels, labels clipped to its
-classes), one warm-up step, then ``--steps`` steps split by CUDA events
-(``profile_train.timed_step``) with each step's wall on the host clock,
-and one more step under ``torch.profiler`` for the device's busy share.
+classes), one warm-up step, then ``--steps`` steps split by the
+tracer's device spans (``profile_train.timed_step``) with each step's
+wall on the host clock, and one more step under ``torch.profiler`` for the device's busy share.
 It prints the card's name and power limit, a line per tree and config,
 and, last, a JSON object of them all (ms).
 """
